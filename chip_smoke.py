@@ -9,10 +9,12 @@ Run from the root of a checkout. Phases, each of which raises on failure
 1. Device: the card's name and power limit; build (or load) the CUDA kernel
    library from ``src/repro_torch/csrc``.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the serving path's shapes (bf16 and fp32), at a GQA shape
-   and at ragged lengths; then CUDA-event timings of the kernel, its plain
-   version and one PyTorch library call as a yardstick (the port never
-   calls it).
+   the card, at the serving path's shapes (bf16 and fp32), at GQA shapes,
+   ragged lengths and the edges of the attention kernels' tiles and KV
+   splits; then CUDA-event timings of the kernel, its plain version and one
+   PyTorch library call as a yardstick (the port never calls it), with the
+   inputs warm in L2 and, for the attention kernels, cold (rotated over
+   more than twice the L2's 50 MB).
 3. Serve (the main path): a full-width deepseek-7b (4 and 2 layers, random
    weights from a seed, bf16) is published three times into a store and
    served through the MRM and the inference engine with device and host
@@ -23,8 +25,9 @@ Run from the root of a checkout. Phases, each of which raises on failure
    the port's plain path on the CPU (float32 weights upcast from the same
    file).
 
-The last lines are the kernel table as JSON, the card's name and power
-limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}``.
+The last lines are the first port's attention kernel times (constants,
+labelled ``first_port_ms``), the kernel table as JSON, the card's name and
+power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -44,6 +47,13 @@ SRC = ROOT / "src"
 # H100 SXM data sheet (dense): HBM3 bytes/s and the bf16 tensor-core peak
 HBM_BW = 3.35e12
 PEAK_BF16 = 989e12
+L2_BYTES = 50 * 2 ** 20
+
+# Kernel times of the first, simple CUDA kernels that the attention kernels
+# replaced: this script's warm CUDA-graph timing of them on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, in an earlier tree. Not measured by this run, so
+# they are printed on a line of their own, labelled, outside the kernel table.
+FIRST_PORT_MS = {"flash_attention": 0.5458000183105469, "decode_attention": 0.15609920024871826}
 
 B, PROMPT, NEW = 2, 512, 16          # one request: batch 2, 512-token prompt, 16 new tokens
 GiB = 2 ** 30
@@ -68,18 +78,22 @@ def smi() -> str:
 def time_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
     """Device time of one call, in ms: after a warm-up, ``reps`` calls
     captured into one CUDA graph, the graph replayed ``trials`` times
-    between CUDA events, the median replay divided by ``reps``. The inputs
-    stay in L2 across calls."""
+    between CUDA events, the median replay divided by ``reps``. With one
+    function the inputs stay in L2 across calls; ``fn`` may be a list of
+    functions over different input copies, which the calls then rotate
+    through (``reps`` is rounded up to a multiple of its length)."""
+    fns = fn if isinstance(fn, (list, tuple)) else [fn]
+    reps = -(-reps // len(fns)) * len(fns)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):          # warm-up off the default stream, as capture needs
-        for _ in range(3):
-            fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -107,6 +121,13 @@ def call_ms(torch, fn, reps: int = 50) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def cold_copies(torch, make, nbytes: int):
+    """Enough copies of the inputs that ``make`` builds (``nbytes`` each)
+    that rotating over them passes twice the L2 cache: every call then
+    finds its inputs in HBM, as the serving path's decode steps do."""
+    return [make() for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
 
 
 def bound(nbytes: float, ops: float):
@@ -167,6 +188,7 @@ def kernel_phase(torch, F):
                             (b, t, hq, hkv, d, lens))
             if (hkv, dtype) == (32, torch.bfloat16):
                 errs["decode_attention"].append(e)
+        edge_cases(torch, kd, kf, rnd, dtype, dev)
         # rmsnorm: prefill and decode rows of d_model, head-norm rows, a ragged shape
         for shape, eps in (((B, PROMPT, 4096), 1e-5), ((B, 1, 4096), 1e-5),
                            ((B, 7, 32, 128), 1e-6), ((17, 96), 1e-5)):
@@ -196,6 +218,22 @@ def kernel_phase(torch, F):
         shape=[B, PROMPT, 32, 128])
     out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"] = bound(
         4 * q.numel() * 2, 4 * 128 * n_pairs)
+    sets = cold_copies(torch, lambda: [rnd(B, PROMPT, 32, 128, dtype=bf) for _ in range(3)],
+                       4 * q.numel() * 2)
+    out["flash_attention"].update(
+        cold_ms=time_ms(torch, [lambda a=a: kf.flash_attention(*a, causal=True) for a in sets]),
+        cold_library_ms=time_ms(torch, [lambda a=a: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in a), is_causal=True) for a in sets]),
+        cold_copies=len(sets))
+    del sets
+    # a larger batch (8 prompts of 512): 1024 q tiles, about 8 per SM
+    q8, k8, v8 = (rnd(8, PROMPT, 32, 128, dtype=bf) for _ in range(3))
+    out["flash_attention"].update(
+        batch8_ms=time_ms(torch, lambda: kf.flash_attention(q8, k8, v8, causal=True)),
+        batch8_library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q8, k8, v8)), is_causal=True)),
+        batch8_bound_ms=bound(4 * q8.numel() * 2, 4 * 128 * n_pairs * 4)[0])
+    del q8, k8, v8
 
     T = PROMPT + NEW
     L = T - 1                                              # last decode step's kv_len
@@ -213,6 +251,16 @@ def kernel_phase(torch, F):
     out["decode_attention"]["bound_ms"], out["decode_attention"]["bound_by"] = bound(
         2 * qd.numel() * 2 + 2 * B * L * 32 * 128 * 2 + B * 4,
         4 * B * 32 * L * 128)
+    sets = cold_copies(torch, lambda: (rnd(B, 32, 128, dtype=bf), rnd(B, T, 32, 128, dtype=bf),
+                                       rnd(B, T, 32, 128, dtype=bf)), 2 * kc.numel() * 2)
+    out["decode_attention"].update(
+        cold_ms=time_ms(torch, [lambda a=a: kd.decode_attention(*a, kv_len) for a in sets]),
+        cold_library_ms=time_ms(torch, [lambda a=a: F.scaled_dot_product_attention(
+            a[0][:, :, None], a[1].transpose(1, 2), a[2].transpose(1, 2), attn_mask=mask)
+            for a in sets]),
+        cold_copies=len(sets),
+        n_split=kd.plan_splits(T, B, 32, torch.cuda.get_device_properties(0).multi_processor_count)[0])
+    del sets
 
     x, sc = rnd(B, PROMPT, 4096, dtype=bf), rnd(4096, dtype=bf) + 1
     xd = rnd(B, 1, 4096, dtype=bf)
@@ -233,6 +281,44 @@ def kernel_phase(torch, F):
     for name, e in errs.items():
         out[name]["max_abs_err"] = max(e)
     return out
+
+
+def edge_cases(torch, kd, kf, rnd, dtype, dev):
+    """Shapes at the edges of the attention kernels' designs: the flash
+    kernel's 128-row q tiles, 64-key k tiles, head dims zero-filled to 64
+    or 128 and no keys at all; the decode kernel's KV splits, with kv_len 0, 1, on a split
+    boundary, one past it and T in one call, a T that is not a multiple of
+    the split, and groups 1, 4 and 8."""
+    for (b, s, t, hq, hkv, d, causal) in ((2, 256, 256, 8, 8, 64, True),
+                                          (2, 64, 64, 4, 2, 8, True),
+                                          (1, 300, 300, 8, 2, 128, True),
+                                          (2, 300, 100, 4, 4, 128, False),
+                                          (2, 100, 300, 8, 2, 64, False)):
+        q, k, v = rnd(b, s, hq, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), \
+            rnd(b, t, hkv, d, dtype=dtype)
+        check_close(torch, "flash", kf.flash_attention(q, k, v, causal=causal),
+                    kf.flash_attention_plain(q, k, v, causal=causal), dtype,
+                    (b, s, t, hq, hkv, d, causal))
+    q, kv = rnd(2, 16, 4, 64, dtype=dtype), rnd(2, 0, 4, 64, dtype=dtype)   # no keys: zeros
+    if not bool((kf.flash_attention(q, kv, kv) == 0).all()):
+        raise AssertionError(f"flash with T = 0 {dtype}: output is not 0")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (hq, hkv) in ((32, 32), (32, 8), (64, 8)):
+        for d in (32, 64, 128):
+            t = next(t for t in (333, 301, 500)
+                     if t % kd.plan_splits(t, 5, hkv, n_sm, hq // hkv)[1])
+            n_split, chunk = kd.plan_splits(t, 5, hkv, n_sm, hq // hkv)
+            if n_split < 2:
+                raise AssertionError(f"decode: one split at T={t}, Hkv={hkv}")
+            lens = (0, 1, chunk, chunk + 1, t)
+            q = rnd(len(lens), hq, d, dtype=dtype)
+            kc, vc = (rnd(len(lens), t, hkv, d, dtype=dtype) for _ in "kv")
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = kd.decode_attention(q, kc, vc, kv_len)
+            check_close(torch, "decode", got, kd.decode_attention_plain(q, kc, vc, kv_len),
+                        dtype, (t, hq, hkv, d, lens, n_split))
+            if (got[0] != 0).any():
+                raise AssertionError("decode: kv_len 0 did not give zeros")
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +560,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
-             "build_seconds": _lib.build_seconds}, indent=1))
+             "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
+    print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -103,10 +103,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                           p, f32, i32, i32, p]
     lib.trims_flash_attention.restype = i32
     lib.trims_decode_attention.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64,
-                                           p, f32, i32, p]
+                                           p, f32, i32, i32, i32, p]
     lib.trims_decode_attention.restype = i32
-    lib.trims_decode_smem_bytes.argtypes = [i64, i64]
-    lib.trims_decode_smem_bytes.restype = i64
 
 
 def load() -> ctypes.CDLL:

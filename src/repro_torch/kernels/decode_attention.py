@@ -1,18 +1,24 @@
 """Single-token attention against a padded KV cache: hand-written CUDA
-kernel (``csrc/decode_attention.cu``) and its plain PyTorch version.
+kernels (``csrc/decode_attention.cu``) and their plain PyTorch version.
 
 Replaces the Pallas kernel ``src/repro/kernels/decode_attention.py::
 decode_attention`` (``_decode_kernel``). Same function: keys at or past
-``kv_len[b]`` are masked, the query heads of one KV head are processed
-together, and ``kv_len == 0`` gives zeros (the Pallas ``l == 0`` guard). A
-cache length that is not a multiple of the tile is masked, not asserted on.
+``kv_len[b]`` are masked, the query heads of one KV head are served by each
+cache row read, and ``kv_len == 0`` gives zeros (the Pallas ``l == 0``
+guard). A cache length that is not a multiple of a tile is masked, not
+asserted on.
 
 The cache stays in the model's ``(B, T, Hkv, D)`` layout and is read by
-strides (no per-step ``swapaxes``). One CUDA block owns one (KV head,
-sequence) pair and walks the cache up to ``kv_len[b]``. On the H100 it is
-bound by the bytes of the valid K/V rows; with ``B * Hkv`` blocks (64 at the
-slice's shape, for 132 SMs) it cannot reach that rate, and splitting the
-cache across blocks is the first item of its redesign.
+strides (no per-step ``swapaxes``). The kernel is split-KV, in one launch:
+each CUDA block takes one contiguous range of cache rows of one (KV head,
+sequence), read with 16-byte loads by warps that each run their own online
+softmax, and keeps its partial (m, l, acc) in shared memory; the blocks of
+one (KV head, sequence) form a thread-block cluster, whose first block
+merges the partials and writes the output. :func:`plan_splits` picks the
+number of ranges on the host from the cache capacity ``T``, ``B``, ``Hkv``
+and the SM count, never from ``kv_len``, which stays on the device (no
+sync, and the call can be captured in a CUDA graph). On the H100 the
+function is bound by the bytes of the valid K/V rows.
 """
 from __future__ import annotations
 
@@ -26,7 +32,49 @@ from repro_torch.kernels import _lib
 
 launches = 0            # kernel launches since the last reset (a plain int)
 _count_lock = threading.Lock()
-_SMEM_LIMIT = 227 * 1024
+
+CTAS_PER_SM = 3         # blocks the planner aims for on each SM
+MIN_SPLIT_ROWS = 32     # a split shorter than this costs more to merge than it saves
+MAX_SPLITS = 8          # the splits of one (KV head, sequence) form one cluster: at most 8
+GROUP_CHUNK = 8         # query heads one block serves; larger groups take several blocks
+LOAD_ALIGN = 16         # bytes: the kernel reads the cache in 16-byte vectors
+_sm_count = {}
+
+
+def plan_splits(T: int, B: int, Hkv: int, n_sm: int, group: int = 1):
+    """``(n_split, chunk)`` for a cache of capacity ``T``: split ``s`` covers
+    rows ``[s * chunk, min(T, (s + 1) * chunk))``, so the splits cover
+    ``[0, T)`` exactly once and none is empty. Aims at ``CTAS_PER_SM``
+    blocks per SM, with no split shorter than ``MIN_SPLIT_ROWS`` rows where
+    ``T`` allows and at most ``MAX_SPLITS`` splits."""
+    per_split = B * Hkv * -(-group // GROUP_CHUNK)        # blocks of one split
+    want = max(1, round(CTAS_PER_SM * n_sm / max(per_split, 1)))
+    n_split = max(1, min(want, T // MIN_SPLIT_ROWS, MAX_SPLITS))
+    chunk = max(1, -(-T // n_split))
+    return max(1, -(-T // chunk)), chunk
+
+
+def check_cache_layout(t: torch.Tensor, name: str = "cache") -> None:
+    """Raise ``ValueError`` unless the kernel can read ``t`` (B, T, Hkv, D)
+    in 16-byte vectors: D contiguous, base address and the strides of every
+    dimension longer than 1 multiples of 16 bytes."""
+    es = t.element_size()
+    if t.dim() != 4 or (t.stride(3) != 1 and t.shape[3] > 1):
+        raise ValueError(f"decode_attention: {name} must be (B, T, Hkv, D) with D contiguous")
+    if t.data_ptr() % LOAD_ALIGN:
+        raise ValueError(f"decode_attention: {name}'s base address is not "
+                         f"{LOAD_ALIGN}-byte aligned")
+    for dim in range(3):
+        if t.shape[dim] > 1 and (t.stride(dim) * es) % LOAD_ALIGN:
+            raise ValueError(f"decode_attention: {name}'s stride {t.stride(dim)} along dim "
+                             f"{dim} is not a multiple of {LOAD_ALIGN} bytes")
+
+
+def _n_sm(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_count[idx]
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -68,11 +116,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise TypeError(f"decode_attention: dtypes {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
     if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("decode_attention: the head dim must be contiguous")
+    if D % 8 or D > 256:
+        raise ValueError(f"decode_attention: head dim {D} is not a multiple of 8 up to 256")
     code = _lib.dtype_code(q.dtype)
+    check_cache_layout(k_cache, "k_cache")
+    check_cache_layout(v_cache, "v_cache")
     lib = _lib.load()
-    if lib.trims_decode_smem_bytes(Hq // Hkv, D) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attention: group {Hq // Hkv} x head dim {D} does not fit "
-                         "in shared memory")
+    n_split, chunk = plan_splits(T, B, Hkv, _n_sm(dev), Hq // Hkv)
     out = torch.empty(B, Hq, D, dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1),
@@ -81,7 +131,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         out.stride(0), out.stride(1))
     rc = lib.trims_decode_attention(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                                     kv_len.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D,
-                                    strides, 1.0 / math.sqrt(D), code, _lib.stream_ptr(q))
+                                    strides, 1.0 / math.sqrt(D), n_split, chunk, code,
+                                    _lib.stream_ptr(q))
     _lib.check(rc, "trims_decode_attention")
     with _count_lock:
         launches += 1

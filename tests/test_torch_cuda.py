@@ -95,3 +95,74 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="rows"):
         trms.rmsnorm(torch.randn(4, 6, 8, device=cuda_device).transpose(0, 1)[:, ::2],
                      torch.ones(8, device=cuda_device))
+
+
+# Shapes at the edges of the redesigned attention kernels (as chip_smoke.py
+# checks them): the flash kernel's 128-row q tiles, 64-key k tiles and head
+# dims zero-filled to 64 or 128; the decode kernel's KV splits.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 256, 8, 8, 64, True), (2, 64, 64, 4, 2, 8, True),
+                                   (1, 300, 300, 8, 2, 128, True),
+                                   (2, 300, 100, 4, 4, 128, False),
+                                   (2, 100, 300, 8, 2, 64, False)])
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_flash_kernel_edges(cuda_device, shape, name):
+    B, S, T, Hq, Hkv, D, causal = shape
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(B, n, h, D, generator=g, device=cuda_device).to(DTYPES[name])
+               for n, h in ((S, Hq), (T, Hkv), (T, Hkv)))
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(got, tflash.flash_attention_plain(q, k, v, causal=causal), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_flash_with_no_keys_gives_zeros(cuda_device, name):
+    q = torch.randn(2, 16, 4, 64, device=cuda_device).to(DTYPES[name])
+    kv = torch.empty(2, 0, 4, 64, device=cuda_device, dtype=DTYPES[name])
+    got = tflash.flash_attention(q, kv, kv)
+    torch.cuda.synchronize()
+    assert torch.all(got == 0)
+    _close(got, tflash.flash_attention_plain(q, kv, kv), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 32), (32, 8), (64, 8)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_decode_kernel_split_edges(cuda_device, heads, D, name):
+    """kv_len 0, 1, on a split boundary, one past it and T in one call, with
+    a T that is not a multiple of the split."""
+    Hq, Hkv = heads
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    T = 333
+    n_split, chunk = tdecode.plan_splits(T, 5, Hkv, n_sm, Hq // Hkv)
+    assert n_split > 1 and T % chunk
+    lens = (0, 1, chunk, chunk + 1, T)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q = torch.randn(len(lens), Hq, D, generator=g, device=cuda_device).to(DTYPES[name])
+    k, v = (torch.randn(len(lens), T, Hkv, D, generator=g, device=cuda_device).to(DTYPES[name])
+            for _ in "kv")
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = tdecode.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.all(got[0] == 0)
+    _close(got, tdecode.decode_attention_plain(q, k, v, kv_len), name)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_misaligned_layouts(cuda_device):
+    x = torch.randn(2, 64, 4, 65, device=cuda_device).to(torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        tflash.flash_attention(x, x, x)
+    # contiguous, but a head dim that is not a multiple of 8: 200-byte head
+    # stride in bf16, which TMA cannot step; float32 takes it
+    y = torch.randn(1, 64, 2, 100, device=cuda_device)
+    with pytest.raises(ValueError, match="stride"):
+        tflash.flash_attention(*(y.to(torch.bfloat16),) * 3)
+    _close(tflash.flash_attention(y, y, y), tflash.flash_attention_plain(y, y, y), "float32")
+    kv = torch.randn(2, 16, 2, 33, device=cuda_device)[..., 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        tdecode.decode_attention(torch.randn(2, 4, 32, device=cuda_device), kv, kv,
+                                 torch.ones(2, dtype=torch.int32, device=cuda_device))

@@ -89,3 +89,56 @@ def test_plain_zero_length_gives_zeros():
     jout = jax_decode(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
                       jnp.asarray(kv_len.numpy()), block_k=64, interpret=True)
     np.testing.assert_allclose(_np(out), _np(jout), rtol=2e-5, atol=2e-5)
+
+
+# The split-KV planner: plain Python, so the CPU checks what the card runs.
+PLAN_CASES = [(528, 2, 32, 132, 1), (528, 2, 8, 132, 4), (333, 5, 32, 132, 1),
+              (333, 5, 8, 132, 8), (64, 2, 4, 132, 1), (20, 1, 1, 132, 1), (1, 1, 1, 132, 1),
+              (4096, 64, 8, 132, 16), (300, 3, 8, 78, 4)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_splits_cover_the_cache_once(case):
+    T, B, Hkv, n_sm, group = case
+    n_split, chunk = tdecode.plan_splits(T, B, Hkv, n_sm, group)
+    rows = np.zeros(T, np.int64)
+    for s in range(n_split):
+        lo, hi = s * chunk, min(T, (s + 1) * chunk)
+        assert lo < hi                                    # no split is empty
+        rows[lo:hi] += 1
+    assert (rows == 1).all()                              # [0, T) exactly once
+    assert n_split * chunk >= T > (n_split - 1) * chunk
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_splits_cta_count_in_range(case):
+    T, B, Hkv, n_sm, group = case
+    n_split, chunk = tdecode.plan_splits(T, B, Hkv, n_sm, group)
+    per_split = B * Hkv * -(-group // tdecode.GROUP_CHUNK)
+    ctas = per_split * n_split
+    assert ctas <= max(per_split, (tdecode.CTAS_PER_SM + 1) * n_sm)
+    if n_split > 1:
+        assert chunk >= tdecode.MIN_SPLIT_ROWS
+    assert n_split <= tdecode.MAX_SPLITS                  # one cluster per (KV head, sequence)
+    # 2-4 blocks per SM where T leaves room for splits of MIN_SPLIT_ROWS rows
+    room = min(2 * n_sm, per_split * min(T // tdecode.MIN_SPLIT_ROWS, tdecode.MAX_SPLITS))
+    assert ctas >= room - per_split
+
+
+def test_plan_splits_at_the_slice_shape():
+    """B = 2, a 528-long cache, 32 KV heads on 132 SMs: several splits."""
+    n_split, chunk = tdecode.plan_splits(528, 2, 32, 132)
+    assert n_split > 1 and 2 * 132 <= 2 * 32 * n_split <= 4 * 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cache_layout_check(dtype):
+    kv = torch.zeros(2, 16, 4, 72, dtype=dtype)
+    tdecode.check_cache_layout(kv)                        # contiguous: fine
+    tdecode.check_cache_layout(kv.transpose(1, 2).contiguous().transpose(1, 2))  # (B,H,T,D) view
+    with pytest.raises(ValueError, match="aligned"):
+        tdecode.check_cache_layout(kv[..., 1:65])        # base one element past 16 bytes
+    with pytest.raises(ValueError, match="stride"):
+        tdecode.check_cache_layout(torch.zeros(2, 16, 4, 66, dtype=dtype)[..., :64])
+    with pytest.raises(ValueError, match="contiguous"):
+        tdecode.check_cache_layout(kv.transpose(2, 3))

@@ -90,3 +90,32 @@ def test_plain_matches_model_chunked_attention():
     want = attention_core(cfg, q, k, v, causal=True)
     got = tflash.flash_attention_plain(q, k, v, causal=True)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 512, 32, 128), (2, 64, 2, 8), (1, 130, 1, 64)])
+def test_tma_strides_of_contiguous_and_view_layouts(shape):
+    t = torch.zeros(*shape, dtype=torch.bfloat16)
+    B, L, H, D = shape
+    assert tflash.tma_strides(t, "q") == (L * H * D, H * D, D)
+    # a (B, H, L, D) tensor viewed as (B, L, H, D), as the JAX layout gives it
+    v = torch.zeros(B, H, L, D, dtype=torch.bfloat16).transpose(1, 2)
+    assert tflash.tma_strides(v, "k") == (H * L * D, D, L * D)
+
+
+def test_tma_strides_replace_the_stride_of_a_size_one_dim():
+    t = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16).as_strided((1, 8, 1, 64), (3, 64, 5, 1))
+    assert tflash.tma_strides(t, "q") == (8 * 64, 64, 64)
+
+
+def test_tma_strides_raise_on_misaligned_layouts():
+    base = torch.zeros(2, 16, 4, 72, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        tflash.tma_strides(base[..., 1:65], "q")          # base 2 bytes past 16
+    with pytest.raises(ValueError, match="stride"):
+        tflash.tma_strides(torch.zeros(2, 16, 4, 60, dtype=torch.bfloat16), "k")   # 120-byte rows
+    with pytest.raises(ValueError, match="stride"):
+        tflash.tma_strides(torch.zeros(2, 16, 4, 100, dtype=torch.bfloat16), "k")  # D % 8 != 0
+    with pytest.raises(ValueError, match="stride"):
+        tflash.tma_strides(torch.zeros(2, 16, 3, 68, dtype=torch.bfloat16)[:, :, :, :64], "v")
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.tma_strides(base.transpose(2, 3), "q")
