@@ -10,11 +10,11 @@ Run from the root of a checkout. Phases, each of which raises on failure
    library from ``src/repro_torch/csrc``.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the serving path's shapes (bf16 and fp32), at GQA shapes,
-   ragged lengths and the edges of the attention kernels' tiles and KV
-   splits; then CUDA-event timings of the kernel, its plain version and one
-   PyTorch library call as a yardstick (the port never calls it), with the
-   inputs warm in L2 and, for the attention kernels, cold (rotated over
-   more than twice the L2's 50 MB).
+   ragged lengths, the edges of the attention kernels' tiles and KV splits
+   and of RMSNorm's launch plan; then CUDA-event timings of the kernel, its
+   plain version and one PyTorch library call as a yardstick (the port
+   never calls it), with the inputs warm in L2 and cold (rotated over more
+   than twice the L2's 50 MB), and the time per call issued from Python.
 3. Serve (the main path): a full-width deepseek-7b (4 and 2 layers, random
    weights from a seed, bf16) is published three times into a store and
    served through the MRM and the inference engine with device and host
@@ -107,20 +107,24 @@ def time_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
     return statistics.median(times)
 
 
-def call_ms(torch, fn, reps: int = 50) -> float:
-    """Time per call issued back to back from Python, in ms (CUDA events
-    around the loop): the larger of the host's cost to issue a call and the
-    device's to run it."""
+def call_ms(torch, fn, reps: int = 50, trials: int = 9) -> float:
+    """Time per call issued back to back from Python, in ms: CUDA events
+    around ``reps`` calls, the median of ``trials`` such loops (the host's
+    clock is shared and noisy). It is the larger of the host's cost to issue
+    a call and the device's to run it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / reps
+    times = []
+    for _ in range(trials):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return statistics.median(times)
 
 
 def cold_copies(torch, make, nbytes: int):
@@ -201,6 +205,7 @@ def kernel_phase(torch, F):
         x, sc = rnd(B, PROMPT, 4096, dtype=dtype)[:, -1:], rnd(4096, dtype=dtype) + 1
         check_close(torch, "rmsnorm", kr.rmsnorm(x, sc), kr.rmsnorm_plain(x, sc), dtype,
                     "x[:, -1:]")
+        rmsnorm_edges(torch, kr, rnd, dtype)
     torch.cuda.synchronize()
 
     # timings at the serving path's shapes, bf16
@@ -262,25 +267,56 @@ def kernel_phase(torch, F):
         n_split=kd.plan_splits(T, B, 32, torch.cuda.get_device_properties(0).multi_processor_count)[0])
     del sets
 
-    x, sc = rnd(B, PROMPT, 4096, dtype=bf), rnd(4096, dtype=bf) + 1
-    xd = rnd(B, 1, 4096, dtype=bf)
-    out["rmsnorm"] = dict(
-        ms=time_ms(torch, lambda: kr.rmsnorm(x, sc, 1e-5)),
-        call_ms=call_ms(torch, lambda: kr.rmsnorm(x, sc, 1e-5)),
-        plain_ms=time_ms(torch, lambda: kr.rmsnorm_plain(x, sc, 1e-5)),
-        library_ms=time_ms(torch, lambda: F.rms_norm(x, (4096,), weight=sc, eps=1e-5)),
-        shape=[B, PROMPT, 4096],
-        decode_rows_ms=time_ms(torch, lambda: kr.rmsnorm(xd, sc, 1e-5)),
-        decode_rows_call_ms=call_ms(torch, lambda: kr.rmsnorm(xd, sc, 1e-5)),
-        decode_rows_library_ms=time_ms(torch, lambda: F.rms_norm(xd, (4096,), weight=sc,
-                                                                 eps=1e-5)))
-    out["rmsnorm"]["bound_ms"], out["rmsnorm"]["bound_by"] = bound(
-        2 * x.numel() * 2 + 4096 * 2, 4 * x.numel())
-    out["rmsnorm"]["decode_rows_bound_ms"] = bound(2 * xd.numel() * 2 + 4096 * 2,
-                                                   4 * xd.numel())[0]
+    # rmsnorm at the prefill rows (2, 512, 4096) and the decode rows (2, 1, 4096);
+    # "cold" rotates (x, scale) over copies that pass twice the L2
+    out["rmsnorm"] = {"shape": [B, PROMPT, 4096]}
+    for pre, rows in (("", PROMPT), ("decode_rows_", 1)):
+        x, sc = rnd(B, rows, 4096, dtype=bf), rnd(4096, dtype=bf) + 1
+        sets = cold_copies(torch, lambda: (rnd(B, rows, 4096, dtype=bf),
+                                           rnd(4096, dtype=bf) + 1), (x.numel() + 4096) * 2)
+        out["rmsnorm"].update({
+            pre + "ms": time_ms(torch, lambda: kr.rmsnorm(x, sc, 1e-5)),
+            pre + "cold_ms": time_ms(torch, [lambda a=a: kr.rmsnorm(*a, 1e-5) for a in sets]),
+            pre + "call_ms": call_ms(torch, lambda: kr.rmsnorm(x, sc, 1e-5)),
+            pre + "plain_ms": time_ms(torch, lambda: kr.rmsnorm_plain(x, sc, 1e-5)),
+            pre + "library_ms": time_ms(torch, lambda: F.rms_norm(x, (4096,), weight=sc,
+                                                                  eps=1e-5)),
+            pre + "cold_library_ms": time_ms(torch, [lambda a=a: F.rms_norm(
+                a[0], (4096,), weight=a[1], eps=1e-5) for a in sets]),
+            pre + "library_call_ms": call_ms(torch, lambda: F.rms_norm(x, (4096,), weight=sc,
+                                                                       eps=1e-5)),
+            pre + "cold_copies": len(sets)})
+        out["rmsnorm"][pre + "bound_ms"], out["rmsnorm"][pre + "bound_by"] = bound(
+            2 * x.numel() * 2 + 4096 * 2, 4 * x.numel())
+        del sets
     for name, e in errs.items():
         out[name]["max_abs_err"] = max(e)
     return out
+
+
+def rmsnorm_edges(torch, kr, rnd, dtype):
+    """RMSNorm at the edges of its launch plan: row counts around the SM
+    count and widths up to 8192 (1 to 8 vectors a thread, 32 to 1024
+    threads a row), a D that is not a multiple of the 16-byte vector and a
+    row longer than the registers hold; in each, scale in the other dtype,
+    a base pointer one element off (the scalar branch), the row-strided
+    x[..., -1:, :] and an all-zero row, which must give zeros."""
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    shapes = [(r, d) for r in (1, 2, 131, 133, 1024, 4096)
+              for d in (8, 96, 128, 4096, 5120, 8192)] + [(7, 100), (2, 40000)]
+    for rows, d in shapes:
+        x, sc = rnd(rows, d, dtype=dtype), rnd(d, dtype=dtype) + 1
+        zero_row = x.clone()   # its own tensor: with one row, x stays random
+        zero_row[0] = 0
+        shifted = rnd(rows * d + 1, dtype=dtype)[1:].view(rows, d)
+        for case, xx, ss in (("", x, sc), ("scale " + str(other), x, sc.to(other)),
+                             ("offset by one", shifted, sc), ("x[-1:]", x[-1:], sc),
+                             ("zero row", zero_row, sc)):
+            got = kr.rmsnorm(xx, ss)
+            check_close(torch, "rmsnorm", got, kr.rmsnorm_plain(xx, ss), dtype,
+                        (rows, d, case))
+        if (got[0] != 0).any():
+            raise AssertionError(f"rmsnorm {(rows, d)} {dtype}: a zero row did not give zeros")
 
 
 def edge_cases(torch, kd, kf, rnd, dtype, dev):

@@ -97,7 +97,8 @@ def _build(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64, f32, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
-    lib.trims_rmsnorm.argtypes = [p, p, p, i64, i64, i64, i64, f32, i32, i32, p]
+    lib.trims_rmsnorm.argtypes = [p, p, p, i64, i64, i64, f32, i32, i32, i32, i32, i32,
+                                  i32, p]
     lib.trims_rmsnorm.restype = i32
     lib.trims_flash_attention.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64,
                                           p, f32, i32, i32, p]
@@ -137,5 +138,17 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+_sm_count = {}
+
+
+def sm_count(idx: int) -> int:
+    """Streaming multiprocessors of CUDA device ``idx`` (cached)."""
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_count[idx]
+
+
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device (as
+    Triton's launcher reads it: no Stream object is made)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -38,7 +38,6 @@ MIN_SPLIT_ROWS = 32     # a split shorter than this costs more to merge than it 
 MAX_SPLITS = 8          # the splits of one (KV head, sequence) form one cluster: at most 8
 GROUP_CHUNK = 8         # query heads one block serves; larger groups take several blocks
 LOAD_ALIGN = 16         # bytes: the kernel reads the cache in 16-byte vectors
-_sm_count = {}
 
 
 def plan_splits(T: int, B: int, Hkv: int, n_sm: int, group: int = 1):
@@ -68,13 +67,6 @@ def check_cache_layout(t: torch.Tensor, name: str = "cache") -> None:
         if t.shape[dim] > 1 and (t.stride(dim) * es) % LOAD_ALIGN:
             raise ValueError(f"decode_attention: {name}'s stride {t.stride(dim)} along dim "
                              f"{dim} is not a multiple of {LOAD_ALIGN} bytes")
-
-
-def _n_sm(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_count[idx]
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -122,7 +114,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     check_cache_layout(k_cache, "k_cache")
     check_cache_layout(v_cache, "v_cache")
     lib = _lib.load()
-    n_split, chunk = plan_splits(T, B, Hkv, _n_sm(dev), Hq // Hkv)
+    n_split, chunk = plan_splits(T, B, Hkv, _lib.sm_count(q.get_device()), Hq // Hkv)
     out = torch.empty(B, Hq, D, dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1),

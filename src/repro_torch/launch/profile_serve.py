@@ -7,7 +7,8 @@ Publishes a full-width deepseek-7b (random weights from a fixed seed, cut to
 through the MRM and the engine, then one warm (device-hit) request under
 ``torch.profiler``. Prints one JSON object: the request's host-clock split,
 the device's busy and idle share over the request (union of kernel and copy
-intervals), and device time by kernel name. The request has the shape of
+intervals), device time by kernel name and summed for each of the port's
+kernels over its template instances. The request has the shape of
 ``chip_smoke.py``'s: batch 2, a 512-token prompt, 16 new tokens. CUDA only.
 """
 from __future__ import annotations
@@ -100,6 +101,10 @@ def main(argv=None):
         "profiled_wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
         "device_idle_share": (1.0 - busy_ms / (wall_s * 1e3)) if dev_events else None,
         "device_events": len(dev_events),
+        # each port kernel summed over its template instances (one name each)
+        "port_kernels": {k: {"count": sum(v["count"] for n, v in by_name.items() if k in n),
+                             "ms": sum(v["ms"] for n, v in by_name.items() if k in n)}
+                         for k in PORT_KERNELS},
         "kernels": [{"name": n[:120], **v} for n, v in top],
     }
     print(json.dumps(out))

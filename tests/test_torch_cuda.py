@@ -65,19 +65,36 @@ def test_decode_kernel_matches_plain(cuda_device, case, name):
     _close(got, tdecode.decode_attention_plain(q, k, v, kv_len), name)
 
 
+# the plan's edges (kernels/rmsnorm.py::plan_rmsnorm): row counts around
+# 132 SMs and widths up to 8192, a D that is not a multiple of the 16-byte
+# vector (masked tail) and a row longer than the registers hold (second read)
+RMS_EDGES = [(r, d) for r in (1, 2, 131, 133, 1024, 4096) for d in (8, 96, 128, 4096, 5120, 8192)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 512, 4096), (2, 1, 4096), (17, 96), (2, 8, 32, 128)])
+@pytest.mark.parametrize("shape", [(2, 512, 4096), (2, 1, 4096), (17, 96), (2, 8, 32, 128),
+                                   *RMS_EDGES, (7, 100), (2, 40000)])
 @pytest.mark.parametrize("name", sorted(DTYPES))
 def test_rmsnorm_kernel_matches_plain(cuda_device, shape, name):
+    """Both eps, the row-strided x[..., -1:, :], scale in the other dtype, a
+    base pointer one element off (the scalar branch) and an all-zero row,
+    which gives zeros and no NaN."""
+    dt = DTYPES[name]
+    other = torch.float32 if dt == torch.bfloat16 else torch.bfloat16
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    x = torch.randn(*shape, generator=g, device=cuda_device).to(DTYPES[name])
-    s = (torch.randn(shape[-1], generator=g, device=cuda_device) + 1).to(DTYPES[name])
-    for eps, xx in ((1e-5, x), (1e-6, x), (1e-5, x[..., -1:, :])):   # and a row-strided view
+    x = torch.randn(*shape, generator=g, device=cuda_device).to(dt)
+    s = (torch.randn(shape[-1], generator=g, device=cuda_device) + 1).to(dt)
+    shifted = torch.randn(x.numel() + 1, generator=g, device=cuda_device).to(dt)[1:].view(shape)
+    zero_row = x.clone()       # its own tensor: with one row, x stays random
+    zero_row[(0,) * (x.dim() - 1)] = 0
+    for eps, xx, ss in ((1e-5, x, s), (1e-6, x, s), (1e-5, x[..., -1:, :], s),
+                        (1e-5, x, s.to(other)), (1e-5, shifted, s), (1e-5, zero_row, s)):
         before = trms.launches
-        got = trms.rmsnorm(xx, s, eps)
+        got = trms.rmsnorm(xx, ss, eps)
         torch.cuda.synchronize()
         assert trms.launches == before + 1
-        _close(got, trms.rmsnorm_plain(xx, s, eps), name)
+        _close(got, trms.rmsnorm_plain(xx, ss, eps), name)
+    assert torch.all(got[(0,) * (x.dim() - 1)] == 0)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,8 @@ from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels.ref import rmsnorm_reference
 from repro_torch.models.layers import apply_norm, rms_head_norm
 
-SHAPES = [(8, 64), (3, 5, 128), (1, 256), (17, 96)]   # tests/test_kernels.py
+# tests/test_kernels.py's shapes, then the d_model widths of the repo's configs
+SHAPES = [(8, 64), (3, 5, 128), (1, 256), (17, 96), (2, 4096), (3, 5120), (2, 8192)]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -75,3 +76,83 @@ def test_layernorm_variants_match_jax(norm_type):
         if norm_type == "layernorm" else ({}, {})
     np.testing.assert_allclose(_np(apply_norm(cfg, p, x)), _np(jax_apply_norm(jcfg, jp, jx)),
                                rtol=2e-5, atol=2e-5)
+
+
+# The CUDA kernel's launch plan (kernels/rmsnorm.py::plan_rmsnorm), at the
+# row counts and widths where its choices change; the card-only tests run
+# the kernel at the same edges.
+PLAN_ROWS = [1, 2, 131, 133, 1024, 4096]
+PLAN_WIDTHS = [8, 96, 100, 128, 4096, 5120, 8192, 40000]
+N_SM = 132
+
+
+def _chunks_of_row(plan, chunks):
+    """The chunk indices each thread of a row takes, as the kernel walks
+    them: ``vecs`` in registers, then any past the payload one by one."""
+    held = []
+    for lane in range(plan.threads):
+        held += [j * plan.threads + lane for j in range(plan.vecs)
+                 if j * plan.threads + lane < chunks]
+        held += list(range(plan.vecs * plan.threads + lane, chunks, plan.threads))
+    return held
+
+
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+@pytest.mark.parametrize("D", PLAN_WIDTHS)
+def test_plan_rmsnorm_covers_every_row_and_chunk_once(rows, D):
+    for itemsize in (2, 4):
+        per_vec = trms.LOAD_BYTES // itemsize
+        chunks = -(-D // per_vec)
+        for aligned in (True, False):
+            plan = trms.plan_rmsnorm(rows, D, itemsize, aligned, N_SM)
+            # the 16-byte branch only where D, the stride and the pointers allow it
+            assert plan.vec == (aligned and D % per_vec == 0)
+            # threads: a power of two from 32 to 1024, at most 1024 a block
+            assert plan.threads in (32, 64, 128, 256, 512, 1024)
+            assert 1 <= plan.rows_per_block and plan.threads * plan.rows_per_block <= 1024
+            # payload: at most 8 vectors a thread and PAYLOAD a block
+            assert plan.vecs in (1, 2, 4, 8)
+            assert plan.threads * plan.rows_per_block * plan.vecs <= trms.PAYLOAD
+            # every row taken by exactly one row slot of one block, as the
+            # kernel indexes them over the grid csrc/rmsnorm.cu launches
+            grid = -(-rows // plan.rows_per_block)
+            taken = [b * plan.rows_per_block + r for b in range(grid)
+                     for r in range(plan.rows_per_block)]
+            assert [t for t in taken if t < rows] == list(range(rows))
+            # every chunk of a row read by exactly one thread
+            held = _chunks_of_row(plan, chunks)
+            assert sorted(held) == list(range(chunks))
+            if chunks <= trms.PAYLOAD:        # the row stays in registers: one HBM pass
+                assert plan.threads * plan.vecs >= chunks
+            if rows >= 2 * N_SM:              # many rows: at least 2 blocks an SM
+                assert grid >= 2 * N_SM
+            elif chunks <= trms.MAX_THREADS:  # few rows: the row arrives in one round
+                assert plan.vecs == 1
+
+
+def test_plan_rmsnorm_at_the_serving_shapes():
+    """(2, 512, 4096) bf16: 2 rows of 64 threads a block (512 blocks), 8
+    vectors each; (2, 1, 4096): one row of 512 threads, one vector each."""
+    assert trms.plan_rmsnorm(1024, 4096, 2, True, N_SM) == (True, 64, 2, 8)
+    assert trms.plan_rmsnorm(2, 4096, 2, True, N_SM) == (True, 512, 1, 1)
+    assert trms.plan_rmsnorm(2, 4096, 2, False, N_SM).vec is False
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros(2, 5, 8), lambda: torch.zeros(2, 5, 8)[:, -1:],
+    lambda: torch.zeros(4, 6, 8).transpose(0, 1)[:, ::2], lambda: torch.zeros(3, 1, 4, 8)[:, :, 1:],
+    lambda: torch.zeros(6, 8)[::2], lambda: torch.zeros(8), lambda: torch.zeros(1, 1, 8),
+    lambda: torch.zeros(4, 3, 8).transpose(0, 1), lambda: torch.zeros(2, 3, 4, 8)[:, 1:2],
+    lambda: torch.zeros(5, 1, 8).expand(5, 3, 8)])
+def test_row_stride_agrees_with_view(make):
+    """The wrapper finds the rows' one stride without making the view."""
+    x = make()
+    try:
+        want = x.view(-1, x.shape[-1]).stride(0) if x.numel() // x.shape[-1] > 1 else None
+        viewable = True
+    except RuntimeError:
+        viewable = False
+    got = trms.row_stride(x.shape, x.stride())
+    assert (got is not None) == viewable
+    if viewable and want is not None:
+        assert got == want
