@@ -24,6 +24,13 @@ Run from the root of a checkout. Phases, each of which raises on failure
 4. End to end: model A's prefill logits on the card (kernels, bf16) against
    the port's plain path on the CPU (float32 weights upcast from the same
    file).
+5. Stream and prefix: a fresh MRM and an engine with layer streaming and a
+   prefix-KV cache serve model A three times over the same store: streamed
+   from disk (windows ready in execution order), then from the host tier
+   through the batch path (a prefix miss), then from the device tier with a
+   prefix hit that must leave the stored K/V unchanged. Every request's
+   tokens must equal phase 3's for A exactly, and every request's kernel
+   launches (counts set to 0 just before it) what its path implies.
 
 The last lines are the first port's attention kernel times (constants,
 labelled ``first_port_ms``), the kernel table as JSON, the card's name and
@@ -376,6 +383,17 @@ def publish(torch, disk, cfg, name, seed, device):
     return disk.open(("repro-torch", name, "1")).total_bytes
 
 
+def path_launches(n_layers: int, prefill: bool = True) -> dict:
+    """Launches one request of batch 2 implies: flash once per layer,
+    decode once per layer and decode step, rmsnorm twice per layer plus the
+    final norm for every position that gives a token; a prefix hit runs no
+    prefill."""
+    steps = NEW if prefill else NEW - 1
+    return {"flash_attention": n_layers if prefill else 0,
+            "decode_attention": n_layers * (NEW - 1),
+            "rmsnorm": (2 * n_layers + 1) * steps}
+
+
 def serve_phase(torch, store_dir: Path, base, device, caps):
     """``base`` is the full-width config; ``caps`` the (device, host) tier
     capacities in bytes."""
@@ -464,12 +482,8 @@ def serve_phase(torch, store_dir: Path, base, device, caps):
         if out.shape != (B, NEW) or out.min() < 0 or out.max() >= base.vocab_size:
             raise AssertionError(f"bad tokens {out.shape} {out.min()}..{out.max()}")
 
-    # launches the path implies: per request flash n_layers, decode
-    # n_layers x (NEW - 1), rmsnorm (2 n_layers + 1) x NEW
-    layers = [cfgs[s.model].n_layers for s in stats]
-    want = {"flash_attention": sum(layers),
-            "decode_attention": sum(n * (NEW - 1) for n in layers),
-            "rmsnorm": sum((2 * n + 1) * NEW for n in layers)}
+    per_request = [path_launches(cfgs[s.model].n_layers) for s in stats]
+    want = {k: sum(p[k] for p in per_request) for k in per_request[0]}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, path implies {want}")
     log(f"main path: {len(stats)} requests in {main_s:.2f} s; launches {json.dumps(launches)}")
@@ -478,7 +492,7 @@ def serve_phase(torch, store_dir: Path, base, device, caps):
                "disk_loads": disk_loads, "main_path_s": main_s, "sizes": sizes,
                "h2d_bw": hw.h2d_bw, "d2h_bw": hw.d2h_bw,
                "requests": [dataclasses.asdict(s) for s in stats]}
-    return engine, launches, summary
+    return engine, launches, summary, a[0]
 
 
 # ---------------------------------------------------------------------------
@@ -520,6 +534,145 @@ def end_to_end_phase(torch, engine):
     log(f"end to end: logits {tuple(got.shape)}, max abs err {err:.4g} "
         f"(max |logit| {scale:.4g}), argmax agreement {agree:.2f}, CPU pass {cpu_s:.1f} s")
     return {"max_abs_err": err, "max_abs_logit": scale, "argmax_agreement": agree}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the layer-streaming path and the prefix-KV cache
+# ---------------------------------------------------------------------------
+
+def stream_phase(torch, store_dir: Path, device, caps, want_tokens, batch_disk_hit):
+    """Model A through a fresh MRM and a streaming, prefix-caching engine
+    over the store of phase 3. ``want_tokens`` are phase 3's tokens for A,
+    ``batch_disk_hit`` its disk-hit request's stats."""
+    import numpy as np
+    from repro_torch.core import mrm as mrm_mod
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.store import DiskStore
+    from repro_torch.device import synchronize, tensor_from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving import engine as engine_mod
+
+    disk = DiskStore(str(store_dir))
+    mrm = mrm_mod.MRM(disk, device_capacity=caps[0], host_capacity=caps[1],
+                      hw=get_hardware(), device=device)
+    engine = InferenceEngine(disk, mrm, device=device, streaming=True,
+                             prefix_cache_bytes=256 * 2 ** 20)
+    key = mrm_mod.ModelKey("repro-torch", "A", "1")
+    cfg = engine._config_for(key)
+    n_layers, toks = cfg.n_layers, prompt(cfg.vocab_size)
+    stats, launches = [], []
+
+    def gen():
+        ops.reset_launches()
+        out, st = engine.generate("A", toks, NEW)
+        launches.append({m.__name__.rsplit(".", 1)[1]: m.launches
+                         for m in ops.KERNEL_MODULES})
+        stats.append(st)
+        log(json.dumps({"stream_request": len(stats), **dataclasses.asdict(st)}))
+        if not np.array_equal(out, want_tokens):
+            raise AssertionError(f"request {len(stats)} of phase 5 ({st.tier_hit}, "
+                                 f"streamed {st.streamed}): tokens differ from phase 3's")
+        return st
+
+    # 1. streamed from disk; record when the plan was set (its arrays
+    # allocated), the order and the time at which windows became ready, the
+    # stream's future, and the engine's host-to-device copies of the windows
+    # (pageable, synchronous: seconds and bytes)
+    order, ready, planned, futs, puts = [], [], [], set(), []
+    mark, put = mrm_mod.LoadFuture._mark_window, engine_mod.tensor_from_numpy
+    set_plan = mrm_mod.LoadFuture._set_plan
+
+    def recording_set_plan(fut, plan, arrays, meta=None):
+        if fut.streaming:
+            planned.append(time.perf_counter())
+        set_plan(fut, plan, arrays, meta)
+
+    def recording_mark(fut, index):
+        if fut.streaming:
+            order.append(index)
+            ready.append(time.perf_counter())
+            futs.add(fut)
+        mark(fut, index)
+
+    def timed_put(arr, dev):
+        t0 = time.perf_counter()
+        t = put(arr, dev)
+        puts.append((time.perf_counter() - t0, arr.nbytes))
+        return t
+
+    mrm_mod.LoadFuture._mark_window = recording_mark
+    mrm_mod.LoadFuture._set_plan = recording_set_plan
+    engine_mod.tensor_from_numpy = timed_put
+    t_req = time.perf_counter()
+    try:
+        st1 = gen()
+    finally:
+        mrm_mod.LoadFuture._mark_window = mark
+        mrm_mod.LoadFuture._set_plan = set_plan
+        engine_mod.tensor_from_numpy = put
+    (stream_fut,) = futs
+    n_windows = 1 + n_layers                      # the stem, then one per layer
+    if (st1.tier_hit, st1.streamed) != ("disk", True):
+        raise AssertionError(f"first request: tier {st1.tier_hit}, streamed {st1.streamed}")
+    if mrm.stats()["stream_loads"] != 1:
+        raise AssertionError(f"stream_loads {mrm.stats()['stream_loads']}")
+    if order != list(range(n_windows)):
+        raise AssertionError(f"windows became ready in the order {order}")
+
+    # pageable H2D of one layer's rows, from the host tier's arrays
+    arrays = mrm.host.peek(key).payload.arrays
+    rows = [a[0] for n, a in arrays.items() if n.startswith("layers/")]
+    layer_bytes = sum(r.nbytes for r in rows)
+    h2d = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        copies = [tensor_from_numpy(r, device) for r in rows]
+        synchronize(device)
+        h2d.append(time.perf_counter() - t0)
+        del copies
+
+    # 2. host hit: the batch path, a prefix miss
+    st2 = gen()
+    if (st2.tier_hit, st2.streamed) != ("host", False):
+        raise AssertionError(f"second request: tier {st2.tier_hit}, streamed {st2.streamed}")
+    pkv = engine.prefix_kv
+    if (pkv.misses, pkv.hits) != (1, 0):
+        raise AssertionError(f"prefix store after request 2: {pkv.stats()}")
+    (stored,) = [e.payload[1] for e in pkv.tier.entries.values()]
+    before = {kv: stored["attn"][kv].clone() for kv in ("k", "v")}
+
+    # 3. device hit and prefix hit: decodes into a clone of the stored K/V
+    st3 = gen()
+    if (st3.tier_hit, st3.streamed) != ("device", False):
+        raise AssertionError(f"third request: tier {st3.tier_hit}, streamed {st3.streamed}")
+    if (pkv.misses, pkv.hits) != (1, 1):
+        raise AssertionError(f"prefix store after request 3: {pkv.stats()}")
+    for kv, t in before.items():
+        if not torch.equal(stored["attn"][kv], t):
+            raise AssertionError(f"the prefix hit's decodes wrote into the stored {kv}")
+
+    want = [path_launches(n_layers), path_launches(n_layers),
+            path_launches(n_layers, prefill=False)]
+    if launches != want:
+        raise AssertionError(f"phase 5 kernel launches {launches}, paths imply {want}")
+
+    def times(st):
+        return {k: getattr(st, k) for k in ("ttft_s", "model_load_s", "compile_s",
+                                            "compute_s", "total_s", "tier_hit")}
+
+    log(f"stream and prefix: windows {order}, launches {json.dumps(launches)}")
+    return {"streamed": {**times(st1), "windows": n_windows,
+                         "plan_ready_s": planned[0] - t_req,
+                         "window_ready_s": [t - t_req for t in ready],
+                         "disk_read_s": stream_fut.timings.disk_read_s,
+                         "scatter_s": stream_fut.timings.deserialize_s,
+                         "h2d_s": sum(c[0] for c in puts),
+                         "h2d_bytes": sum(c[1] for c in puts)},
+            "batch_disk_hit": times(batch_disk_hit),
+            "host_hit_ttft_s": st2.ttft_s, "prefix_hit_ttft_s": st3.ttft_s,
+            "layer_h2d": {"bytes": layer_bytes, "s": sorted(h2d)},
+            "launches": launches}
 
 
 def _map(tree, fn):
@@ -573,9 +726,14 @@ def main() -> int:
     shutil.rmtree(store_dir, ignore_errors=True)
     try:
         # full width: d_model 4096, 32 heads of 128, d_ff 11008, vocab 102400
-        engine, launches, summary = serve_phase(
-            torch, store_dir, get_config("deepseek-7b"), device, (3 * GiB, int(4.5 * GiB)))
+        caps = (3 * GiB, int(4.5 * GiB))
+        engine, launches, summary, tokens_a = serve_phase(
+            torch, store_dir, get_config("deepseek-7b"), device, caps)
         e2e = end_to_end_phase(torch, engine)
+        # 5. stream and prefix
+        batch_disk_hit = next(s for s in engine.stats if s.model == "A")
+        del engine
+        stream = stream_phase(torch, store_dir, device, caps, tokens_a, batch_disk_hit)
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
 
@@ -596,7 +754,9 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
+             "stream": stream,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
+    print(json.dumps({"stream": stream}))
     print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)

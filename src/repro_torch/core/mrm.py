@@ -23,18 +23,19 @@ staging model.
 
 PyTorch port: the device tier holds torch tensors on ``MRM.device_name``
 (CUDA by default). Every handle of one model receives the same device
-tensors. Cross-process sharing (``use_shm``), streaming opens
-(``open_stream``), the object store with its write-back and the cluster's
-peer fetch belong to later slices of the port: their arguments raise
-``NotImplementedError`` here.
+tensors. Streaming opens (``open_stream``, DESIGN.md §9) read the local
+file window by window. Cross-process sharing (``use_shm``), the object
+store with its write-back and the cluster's peer fetch belong to later
+slices of the port: their arguments raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import itertools
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -125,6 +126,10 @@ class ModelHandle:
     n_objects: int = 1
     tier: str = "device"
     closed: bool = False
+    # private handles own their arrays outright (components-filtered
+    # streaming loads, §9) — they never reference a cache entry, so
+    # close() must not decrement anyone's refcount
+    private: bool = False
 
 
 _LATER_SLICE = "belongs to a later slice of the PyTorch port"
@@ -148,13 +153,24 @@ class LoadFuture:
     ``done``, ``failed``) for observability. ``result()`` blocks and returns
     the :class:`ModelHandle` (or ``None`` for prefetches), re-raising any
     load error in the caller. Coalesced waiters, prefetch hints, and
-    background loads all share this one code path. The partial-open
-    (streaming) surface comes with the streaming slice of the port.
+    background loads all share this one code path.
+
+    **Partial-open surface** (streaming opens, DESIGN.md §9): a future
+    created by :meth:`MRM.open_stream` additionally exposes per-layer
+    readiness — ``plan``/``arrays`` appear once the .trims header parses,
+    ``wait_prefix(k)`` blocks until the first ``k`` layer windows are
+    resident (readiness arrives in execution order), and ``demand(i)``
+    asks the loader to stage window ``i`` next (on-demand MoE experts).
+    A streaming future that coalesces onto another streaming load mirrors
+    the primary's window events; coalescing onto a non-streaming load
+    degrades gracefully — ``wait_prefix`` then releases only on
+    completion, with ``plan`` left ``None`` (everything resident).
     """
 
     def __init__(self, key: ModelKey, tier: str = "device",
                  want_handle: bool = True, activation_bytes: int = 0,
-                 granularity: str = "model",
+                 granularity: str = "model", streaming: bool = False,
+                 components: Optional[tuple] = None,
                  ctx: Optional[RequestContext] = None):
         self.key = key
         self.tier = tier
@@ -162,6 +178,8 @@ class LoadFuture:
         self.want_handle = want_handle
         self.activation_bytes = activation_bytes
         self.granularity = granularity
+        self.streaming = streaming
+        self.components = tuple(components) if components else None
         self.state = PENDING
         self.stage = "queued"
         self.coalesced = False
@@ -174,6 +192,96 @@ class LoadFuture:
         self._exc: Optional[BaseException] = None
         self._cbs = []
         self._cb_lock = threading.Lock()
+        # -- partial-open state (DESIGN.md §9) --
+        self.plan = None              # List[LayerWindow] once header parsed
+        self.arrays = None            # live host arrays (fill as bytes land)
+        self.meta = None              # .trims meta (carries the model config)
+        self._win_cond = threading.Condition()
+        self._win_done: set = set()
+        self._win_prefix = 0          # leading complete windows
+        self._win_total: Optional[int] = None
+        self._win_listeners: List["LoadFuture"] = []
+        self._demand: Optional[Callable[[int], bool]] = None
+
+    # -- partial-open surface (streaming opens) ------------------------------
+    def windows_ready(self) -> int:
+        """Length of the ready prefix: windows ``[0, n)`` are resident."""
+        with self._win_cond:
+            return self._win_prefix
+
+    def wait_prefix(self, k: int, timeout: Optional[float] = None) -> int:
+        """Block until the first ``k`` layer windows are resident (or the
+        whole load finished); returns the ready prefix length. ``k`` is
+        clamped to the plan size once known. Re-raises the load's error."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._win_cond:
+            while True:
+                k_eff = k if self._win_total is None \
+                    else min(k, self._win_total)
+                if self._win_prefix >= k_eff and self._win_total is not None:
+                    return self._win_prefix
+                if self._ev.is_set():
+                    break
+                remaining = None if deadline is None \
+                    else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    raise TimeoutError(
+                        f"open of {self.key}: prefix {k} still "
+                        f"{self._win_prefix} ready")
+                self._win_cond.wait(remaining)
+        if self._exc is not None:
+            raise self._exc
+        with self._win_cond:
+            # finished without a plan (tier hit / non-streaming primary):
+            # everything is resident
+            return self._win_prefix if self._win_total is not None else k
+
+    def demand(self, window_index: int) -> bool:
+        """Hint the in-flight stream to stage ``window_index`` next (jump
+        the disk queue) — the on-demand path for MoE expert windows.
+        Returns False when no stream is accepting hints (already complete,
+        or a non-streaming load)."""
+        fn = self._demand
+        return bool(fn(window_index)) if fn is not None else False
+
+    def _set_plan(self, plan, arrays, meta=None):
+        listeners: List[LoadFuture] = []
+        with self._win_cond:
+            if self.plan is None:
+                self.plan = plan
+                self.arrays = arrays
+                self.meta = meta
+                self._win_total = len(plan)
+                listeners = list(self._win_listeners)
+            self._win_cond.notify_all()
+        for o in listeners:
+            o._set_plan(plan, arrays, meta)
+
+    def _mark_window(self, index: int):
+        listeners: List[LoadFuture] = []
+        with self._win_cond:
+            if index in self._win_done:
+                return
+            self._win_done.add(index)
+            while self._win_prefix in self._win_done:
+                self._win_prefix += 1
+            listeners = list(self._win_listeners)
+            self._win_cond.notify_all()
+        for o in listeners:
+            o._mark_window(index)
+
+    def _add_window_listener(self, other: "LoadFuture"):
+        """Mirror this (primary) future's window events onto a coalesced
+        streaming waiter, replaying anything that already fired."""
+        with self._win_cond:
+            plan, arrays, meta = self.plan, self.arrays, self.meta
+            done = sorted(self._win_done)
+            self._win_listeners.append(other)
+        other._demand = self.demand
+        if plan is not None:
+            other._set_plan(plan, arrays, meta)
+        for i in done:
+            other._mark_window(i)
 
     # -- caller side --------------------------------------------------------
     def done(self) -> bool:
@@ -206,6 +314,8 @@ class LoadFuture:
             self.stage = "failed" if exc is not None else "done"
             cbs, self._cbs = self._cbs, []
             self._ev.set()
+        with self._win_cond:  # release wait_prefix callers (done or failed)
+            self._win_cond.notify_all()
         for fn in cbs:
             fn(self)
 
@@ -292,6 +402,8 @@ class MRM:
             "cloud_downloads": 0, "disk_loads": 0, "h2d_stages": 0,
             "bytes_from_disk": 0, "bytes_h2d": 0,
             "prefetches": 0, "pipelined_loads": 0,
+            # streaming (partial) opens — DESIGN.md §9
+            "stream_opens": 0, "stream_loads": 0, "partial_loads": 0,
             # modeled seconds of work this node performed — survives open
             # coalescing (a coalesced waiter's own timings show a zero-cost
             # hit; the staging cost lives here, on the node that paid it)
@@ -581,8 +693,35 @@ class MRM:
     def open_stream(self, key: ModelKey, want_handle: bool = True,
                     components: Optional[tuple] = None,
                     ctx: Optional[RequestContext] = None) -> LoadFuture:
-        """Partial open with per-layer readiness (DESIGN.md §9)."""
-        raise NotImplementedError(f"open_stream (layer streaming) {_LATER_SLICE}")
+        """Partial open (DESIGN.md §9): a host-tier open whose future
+        exposes per-layer readiness — ``wait_prefix``/``windows_ready``
+        fire as each layer window's bytes land, in execution order, fed by
+        a demand-reorderable window reader over the local file.
+
+        ``components`` restricts staging to a subset of window groups
+        (``"stem"``, ``"encoder"``, ``"layer"``, ``"expert"``) — e.g.
+        ``("stem", "layer")`` skips a vlm/encdec checkpoint's unused
+        frontend half and MoE expert banks. A partial load is **private**:
+        it bypasses the host cache (a cached entry must always hold the
+        full tensor set) and its handle just owns its own arrays.
+
+        Host-tier hits and coalescing behave exactly as :meth:`open_async`
+        — a warm model simply completes the future with ``plan = None``
+        (nothing to wait for).
+        """
+        key = ModelKey(*key)
+        self._note_ctx(key, ctx)
+        fut = LoadFuture(key, tier="host", want_handle=want_handle,
+                         streaming=True, components=components, ctx=ctx)
+        with self._lock:
+            if want_handle:
+                self.metrics["opens"] += 1
+            else:
+                self.metrics["prefetches"] += 1
+            self.metrics["stream_opens"] += 1
+        self._note_arrival(fut)
+        self._submit(fut)
+        return fut
 
     def pin(self, key: ModelKey, tier: Tier = Tier.DEVICE) -> bool:
         return self.tiers.pin(ModelKey(*key), tier)
@@ -597,6 +736,8 @@ class MRM:
             handle.closed = True
             self.metrics["closes"] += 1
             self._handles.pop(handle.handle_id, None)
+            if handle.private:
+                return  # owns its arrays; no cache entry to release
             cache = self.device if handle.tier == "device" else self.host
             e = cache.peek(handle.key)
             if e is not None and e.refcount > 0:
@@ -676,10 +817,18 @@ class MRM:
                 fut.coalesced = True
                 fut.stage = "coalesced"
                 self.metrics["coalesced_loads"] += 1
+                if fut.streaming and primary.streaming:
+                    # mirror the primary's per-window readiness so this
+                    # waiter's wait_prefix releases as layers land (§9)
+                    primary._add_window_listener(fut)
                 primary.add_done_callback(
                     lambda p: self._on_primary_done(fut, p))
                 return
-            self._inflight[key] = fut
+            if not (fut.streaming and fut.components is not None):
+                # a components-filtered (partial) load must not become the
+                # primary: other opens coalescing onto it would adopt an
+                # incomplete tensor set
+                self._inflight[key] = fut
             fut.state = LOADING
             self._record_arrival(fut)
         if inline:
@@ -781,6 +930,8 @@ class MRM:
             # provisional: _ensure_on_disk overwrites with "cloud" when
             # the model has to be fetched from outside this node
             timings.tier_hit = "disk"
+            if fut.streaming:
+                return self._load_host_streaming(fut)
             if fut.tier == "device" and self.pipelined_staging:
                 return self._load_cold_pipelined(fut)
             host_entry = self._load_host(key, timings, fut)  # still pinned
@@ -1059,6 +1210,146 @@ class MRM:
             self.metrics["modeled_stage_s"] += (
                 self.hw.disk_time(nbytes) + self.hw.deserialize_time(nbytes))
         return entry
+
+    def _load_host_streaming(self, fut: LoadFuture) -> Optional[ModelHandle]:
+        """Cold -> HOST with per-window readiness (DESIGN.md §9).
+
+        Bytes deserialize as they become available instead of after the
+        whole file lands: a demand-reorderable disk reader scatters each
+        window's ranges straight into live host arrays, and window
+        readiness fires in execution order through ``fut.wait_prefix``. A
+        key only the CLOUD tier holds lands on disk first, and only the
+        deserialize leg streams; shard callbacks that feed windows from the
+        wire (``on_shard``) come with the object-store slice of the port.
+
+        Components-filtered loads are private: they bypass the host cache
+        (cached entries must always hold the full tensor set) and return a
+        handle that owns its arrays outright.
+        """
+        from repro_torch.core.layerplan import StreamAssembler
+
+        key, timings = fut.key, fut.timings
+        private = fut.components is not None
+        # no incremental wire source yet: land the file first
+        self._ensure_on_disk(key, timings)
+        with self._evict_lock:
+            self._demoted_keys.discard(key)  # any demoted copy lapsed
+        mf = self.disk.open(key)
+
+        entry = None
+        if not private:
+            # mirrors _load_host's reservation: adoption check + pinned
+            # placeholder under one cache lock, so concurrent eviction
+            # passes can neither reap the in-flight entry nor double-home
+            # the key
+            with self.host.lock:
+                e = self.host.peek(key)
+                if e is not None and e.payload is not None:
+                    # a concurrent demotion re-homed the key: warm hit,
+                    # nothing to stream (plan stays None -> wait_prefix
+                    # releases when the future completes)
+                    e.pinned = True
+                    timings.tier_hit = "host"
+                    adopted = e
+                else:
+                    adopted = None
+                    self.tiers.make_room(Tier.HOST, mf.total_bytes)
+                    entry = self.host.insert(key, mf.total_bytes, payload=None)
+                    entry.pinned = True
+            if adopted is not None:
+                return self._finish_entry(fut, self.host, adopted, unpin=True)
+
+        def on_window(w):
+            fut.stage = "deserialize"
+            fut._mark_window(w.index)
+
+        asm = StreamAssembler(fut._set_plan, on_window, components=fut.components)
+        try:
+            fut.stage = "disk_read"
+            asm.ensure_plan_from_file(mf)
+            self._stream_windows_from_disk(mf, asm, fut)
+            missing = [w.index for w in fut.plan
+                       if asm.included(w) and not asm.window_complete(w.index)]
+            if missing:
+                raise IOError(f"streaming load of {key} left windows "
+                              f"{missing} incomplete")
+        except BaseException:
+            if entry is not None:
+                with self.host.lock:
+                    if self.host.peek(key) is entry:
+                        self.host.remove(key)
+            raise
+        timings.deserialize_s += asm.scatter_s
+        nbytes = sum(int(a.nbytes) for a in asm.arrays.values())
+        with self._lock:
+            self.metrics["disk_loads"] += 1
+            self.metrics["stream_loads"] += 1
+            self.metrics["bytes_from_disk"] += nbytes
+            self.metrics["modeled_stage_s"] += (
+                self.hw.disk_time(nbytes) + self.hw.deserialize_time(nbytes))
+            if private:
+                self.metrics["partial_loads"] += 1
+
+        if private:
+            timings.total_s = time.perf_counter() - fut._t_start
+            if not fut.want_handle:
+                return None
+            h = ModelHandle(next(self._hid), key, dict(asm.arrays), nbytes,
+                            timings, fut.granularity, tier="host",
+                            private=True)
+            with self._lock:
+                self._handles[h.handle_id] = h
+            return h
+
+        entry.payload = HostModel(asm.arrays, nbytes, [])
+        return self._finish_entry(fut, self.host, entry, unpin=True)
+
+    def _stream_windows_from_disk(self, mf, asm, fut: LoadFuture) -> None:
+        """Read the windows not yet complete, in plan order, with
+        ``fut.demand(i)`` jumping demanded windows to the queue head (the
+        on-demand MoE-expert path)."""
+        demand_lock = threading.Lock()
+        demanded: deque = deque()
+        pending = {w.index for w in asm.plan
+                   if asm.included(w) and not asm.window_complete(w.index)}
+
+        def demand(index: int) -> bool:
+            with demand_lock:
+                if index not in pending:
+                    return False
+                demanded.append(index)
+                return True
+
+        fut._demand = demand
+        queue = deque(sorted(pending))
+        by_index = {w.index: w for w in asm.plan}
+        try:
+            with open(mf.path, "rb") as f:
+                while True:
+                    with demand_lock:
+                        if demanded:
+                            idx = demanded.popleft()
+                            if idx not in pending:
+                                continue
+                        else:
+                            idx = None
+                            while queue:
+                                cand = queue.popleft()
+                                if cand in pending:
+                                    idx = cand
+                                    break
+                            if idx is None:
+                                break
+                        pending.discard(idx)
+                    w = by_index[idx]
+                    for off, n in w.ranges:
+                        t0 = time.perf_counter()
+                        f.seek(off)
+                        data = f.read(n)
+                        fut.timings.disk_read_s += time.perf_counter() - t0
+                        asm.feed(off, data)
+        finally:
+            fut._demand = None
 
     def _stage_device(self, key, host_entry, activation_bytes, timings,
                       fut: Optional[LoadFuture] = None):

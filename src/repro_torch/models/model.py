@@ -14,6 +14,8 @@ Entry points::
   prefill(cfg, params, batch, max_len)        -> (logits, cache)
   decode_step(cfg, params, cache, token, pos) -> (logits, cache)
   greedy_generate(cfg, params, batch, n_steps, max_len)
+  stream_prefill_embed / stream_prefill_layer / stream_logits /
+  stream_decode_embed / stream_decode_layer   -> one step of layer streaming
 
 Other families belong to later slices and raise ``NotImplementedError``.
 """
@@ -93,11 +95,19 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Params:
                      "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}}
 
 
+def _attn_cache_zeros(cfg: ModelConfig, B: int, T: int, device) -> Params:
+    """One layer's zero KV cache, ``(B, T, Hkv, hd)`` per K and V."""
+    shape = (B, T, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+
 def _write_kv(cache_layer: Params, k: torch.Tensor, v: torch.Tensor, start: int) -> Params:
     """KV append, written IN PLACE into the cache (a view of the stacked
-    cache). The JAX version is out-of-place (dynamic_update_slice on an
-    immutable array); the prefix-KV cache of a later slice shares cached
-    prefill KV and will have to clone or keep this out-of-place."""
+    cache, or one layer's own cache on the streaming path). The JAX version
+    is out-of-place (dynamic_update_slice on an immutable array); the
+    prefix-KV cache therefore stores a copy of each prefill cache and hands
+    every hit a fresh clone (``serving/prefix_cache.py``)."""
     S = k.shape[1]
     cache_layer["k"][:, start:start + S] = k.to(cache_layer["k"].dtype)
     cache_layer["v"][:, start:start + S] = v.to(cache_layer["v"].dtype)
@@ -170,6 +180,56 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                             layer_params(cache["attn"], i), int(pos))
     logits = _logits(cfg, params, x)
     return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# streaming execution (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+# Per-layer entry points for the attention family: the serving engine walks
+# the trunk layer by layer, starting as soon as the stem + layer 0 windows
+# of a streaming load are resident. Each step reuses the function the batch
+# path runs (prefill_attn_layer / _attn_decode), so streamed generation
+# matches the batch path token for token. Each runs in inference mode: the
+# per-layer caches they make are written in place by later calls.
+
+@torch.inference_mode()
+def stream_prefill_embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+                         ) -> torch.Tensor:
+    """Stem half of prefill: (B, S) tokens -> residual stream (B, S, D).
+    Needs only the stem window (``embed``)."""
+    return _embed(cfg, params, tokens)
+
+
+@torch.inference_mode()
+def stream_prefill_layer(cfg: ModelConfig, layer: Params, x: torch.Tensor,
+                         positions: torch.Tensor, max_len: int
+                         ) -> Tuple[torch.Tensor, Params]:
+    """One trunk layer of prefill; allocates and primes this layer's KV
+    slot. Returns (x', cache_layer)."""
+    cl = _attn_cache_zeros(cfg, x.shape[0], max_len, x.device)
+    return prefill_attn_layer(cfg, layer, cl, x, positions)
+
+
+@torch.inference_mode()
+def stream_logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Head half: last-position logits (B, V) from the residual stream.
+    Needs only the stem window (``final_norm`` + tied ``embed``)."""
+    return _logits(cfg, params, x[:, -1:, :])[:, 0]
+
+
+@torch.inference_mode()
+def stream_decode_embed(cfg: ModelConfig, params: Params, token: torch.Tensor
+                        ) -> torch.Tensor:
+    """Stem half of a decode step: (B,) token -> (B, 1, D)."""
+    return params["embed"][token][:, None, :].to(cfg.cdtype)
+
+
+@torch.inference_mode()
+def stream_decode_layer(cfg: ModelConfig, layer: Params, x: torch.Tensor, cl: Params,
+                        pos: int) -> Tuple[torch.Tensor, Params]:
+    """One trunk layer of a decode step; ``cl`` is updated in place.
+    Returns (x', cache_layer)."""
+    return _attn_decode(cfg, layer, x, cl, int(pos))
 
 
 def greedy_generate(cfg: ModelConfig, params: Params, batch, n_steps: int,

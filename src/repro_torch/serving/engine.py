@@ -1,6 +1,6 @@
 """Inference engine of the PyTorch port: the FaaS-side consumer of TrIMS.
 
-Mirrors the JAX package's ``serving/engine.py`` batch path. Requests are
+Mirrors the JAX package's ``serving/engine.py``. Requests are
 served against models resolved through the TrIMS client (warm path) or a
 cold disk load (the baseline). Weights arrive as the MRM's shared device
 tensors and are used in place: every handle of one model computes on the
@@ -10,8 +10,10 @@ PyTorch runs eagerly, so there is no compiled program to cache: the
 "executable" of a (topology, batch, shape) signature is the model function
 itself, and ``compile_s`` is the measured time of its first call (library
 builds, kernel loads, cuBLAS set-up), timed the way the JAX engine times
-XLA's first run. Layer streaming and the prefix-KV cache belong to later
-slices of the port.
+XLA's first run. With ``streaming`` on, a cold DENSE model is served layer
+by layer against a partial open (DESIGN.md §9); with ``prefix_cache_bytes``
+the batch path reuses the prefill of a prompt it has seen
+(``serving/prefix_cache.py``).
 
 Latency accounting per request mirrors paper Fig. 1/9:
   model_load_s (disk+deserialize+H2D | share), compile_s, compute_s.
@@ -30,17 +32,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.core.cache import Tier
 from repro_torch.core.client import LoadedModel, TrimsClient, cold_load, free_model
 from repro_torch.core.mrm import MRM, ModelKey
 from repro_torch.core.store import DiskStore
 from repro_torch.device import resolve_device, synchronize, tensor_from_numpy
 from repro_torch.models import model as M
+from repro_torch.serving.prefix_cache import PrefixKVStore, prompt_key
 from repro_torch.serving.weights_io import flat_to_params_like, params_to_flat
 
 FRAMEWORK = "repro-torch"
-_LATER_SLICE = "belongs to a later slice of the PyTorch port"
 
 
 def arch_signature(cfg: ModelConfig) -> str:
@@ -78,7 +80,7 @@ class RequestStats:
     total_s: float
     modeled_load_s: float = 0.0
     ttft_s: float = 0.0          # submit -> first token materialized
-    streamed: bool = False       # layer-streaming path (a later slice)
+    streamed: bool = False       # served via the layer-streaming path (§9)
 
 
 class InferenceEngine:
@@ -88,10 +90,6 @@ class InferenceEngine:
                  streaming: bool = False,
                  device="cuda",
                  framework: str = FRAMEWORK):
-        if streaming:
-            raise NotImplementedError(f"streaming (layer-streamed serving) {_LATER_SLICE}")
-        if prefix_cache_bytes > 0:
-            raise NotImplementedError(f"the prefix-KV cache {_LATER_SLICE}")
         self.device = resolve_device(device)
         if mrm is not None and mrm.device_name != self.device:
             raise ValueError(f"engine on {self.device} but the MRM's device tier is "
@@ -100,6 +98,10 @@ class InferenceEngine:
         self.mrm = mrm
         self.framework = framework
         self.use_trims = use_trims and mrm is not None
+        # streaming (DESIGN.md §9): serve DENSE requests layer by layer
+        # against a partial open — prefill starts once stem+layer0 land.
+        # Other families (or warm hits) fall back to the batch path.
+        self.streaming = streaming and self.use_trims
         self.trims = TrimsClient(mrm, "engine") if self.use_trims else None
         # exe cache is keyed by architecture signature (not model identity) so
         # same-topology models share entries; cfg cache keys by (name,
@@ -111,6 +113,8 @@ class InferenceEngine:
         self.stats: List[RequestStats] = []
         self.exe_cache_hits = 0
         self.exe_cache_misses = 0
+        self.prefix_kv = (PrefixKVStore(prefix_cache_bytes)
+                          if prefix_cache_bytes > 0 else None)
 
     # ------------------------------------------------------------- loading
     def _config_for(self, key: ModelKey) -> ModelConfig:
@@ -151,11 +155,19 @@ class InferenceEngine:
         full device tier would evict (or capacity-block) the model the
         *current* request is about to open. Without headroom we still warm
         the host tier — that is where the expensive disk+deserialize work
-        lives."""
+        lives.
+
+        With ``streaming`` on, a model that is not yet disk-resident but is
+        reachable (cloud) is warmed through a partial open instead
+        (``MRM.open_stream``): when a request for it arrives mid-flight, its
+        streaming open coalesces onto this one and inherits the per-window
+        readiness already accumulated."""
         if not self.use_trims:
             return None
         key = ModelKey(self.framework, name, version)
         if not self.disk.contains(key):
+            if self.streaming and self._fetchable(key):
+                return self.mrm.open_stream(key, want_handle=False)
             return None
         tier = "device"
         try:
@@ -164,6 +176,16 @@ class InferenceEngine:
         except Exception:  # noqa: BLE001 — a hint must never fail the worker
             tier = "host"
         return self.mrm.prefetch(key, tier=tier)
+
+    def _fetchable(self, key: ModelKey) -> bool:
+        """Whether the MRM can fetch ``key`` from outside the local disk (the
+        CLOUD tier; the object store and the peer hook come with the
+        cluster slice of the port)."""
+        m = self.mrm
+        try:
+            return m.cloud is not None and m.cloud.contains(key)
+        except Exception:  # noqa: BLE001 — a hint must never fail the worker
+            return False
 
     # ------------------------------------------------------------- compile
     def _executable(self, cfg: ModelConfig, kind: str, B: int, S: int,
@@ -182,6 +204,16 @@ class InferenceEngine:
                 exe = functools.partial(M.prefill, cfg, max_len=max_len)
             elif kind == "decode":
                 exe = functools.partial(M.decode_step, cfg)
+            elif kind == "sembed":
+                exe = functools.partial(M.stream_prefill_embed, cfg)
+            elif kind == "slayer":
+                exe = functools.partial(M.stream_prefill_layer, cfg, max_len=max_len)
+            elif kind == "slogits":
+                exe = functools.partial(M.stream_logits, cfg)
+            elif kind == "sdembed":
+                exe = functools.partial(M.stream_decode_embed, cfg)
+            elif kind == "sdlayer":
+                exe = functools.partial(M.stream_decode_layer, cfg)
             else:
                 raise ValueError(f"unknown executable kind {kind!r}")
             self._exe_cache[sig] = exe
@@ -205,7 +237,15 @@ class InferenceEngine:
     # --------------------------------------------------------------- infer
     def generate(self, name: str, tokens: np.ndarray, max_new_tokens: int = 8,
                  version: str = "1") -> Tuple[np.ndarray, RequestStats]:
-        """Prefill + greedy decode. tokens: (B, S) int32."""
+        """Prefill + greedy decode. tokens: (B, S) int32.
+
+        With ``streaming`` on, cold DENSE loads are served layer by layer
+        against a partial open (same tokens, earlier first token); anything
+        else falls through to the batch path below."""
+        if self.streaming:
+            r = self._generate_streaming(name, tokens, max_new_tokens, version)
+            if r is not None:
+                return r
         return self._generate_batch(name, tokens, max_new_tokens, version)
 
     def _generate_batch(self, name: str, tokens: np.ndarray,
@@ -223,8 +263,18 @@ class InferenceEngine:
             t0 = time.perf_counter()
             batch = {"tokens": torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                                device=self.device)}
-            (logits, cache), dc = self._run_exe(sig_p, exe_p, sm.params, batch)
-            extra_c += dc
+            pkey = hit = None
+            if self.prefix_kv is not None:
+                pkey = prompt_key(name, tokens, max_len)
+                hit = self.prefix_kv.lookup(pkey)
+            if hit is not None:
+                logits, cache = hit     # the cache is this request's own clone
+            else:
+                (logits, cache), dc = self._run_exe(sig_p, exe_p, sm.params, batch)
+                extra_c += dc
+                if self.prefix_kv is not None:
+                    self.prefix_kv.insert(pkey, logits, cache,
+                                          time.perf_counter() - t0)
             tok = logits.argmax(-1)
             synchronize(self.device)
             ttft_s = time.perf_counter() - t_start
@@ -247,6 +297,148 @@ class InferenceEngine:
             compile_s=extra_c, compute_s=compute_s,
             total_s=time.perf_counter() - t_start,
             modeled_load_s=tm.modeled_total(), ttft_s=ttft_s)
+        with self._lock:
+            self.stats.append(st)
+        return result, st
+
+    def _generate_streaming(self, name: str, tokens: np.ndarray,
+                            max_new_tokens: int, version: str
+                            ) -> Optional[Tuple[np.ndarray, RequestStats]]:
+        """Layer-streaming serve (DESIGN.md §9): open the model through
+        :meth:`MRM.open_stream`, start prefill as soon as the stem and
+        layer-0 windows are resident, and chase the stream layer by layer.
+        Each window's rows are copied to the device once and reused by every
+        decode step (the host arrays become the host tier's entry, so they
+        are never aliased). Returns None to fall back to the batch path
+        (warm hit, a family other than DENSE, or no layer plan)."""
+        t_start = time.perf_counter()
+        key = ModelKey(self.framework, name, version)
+        cfg = self._cfg_cache.get((name, version))
+        if cfg is None and self.disk.contains(key):
+            cfg = self._config_for(key)
+        if cfg is None and not self._fetchable(key):
+            return None
+        if cfg is not None and cfg.family != DENSE:
+            return None
+        if self.mrm.resident(key, Tier.DEVICE) or \
+                self.mrm.resident(key, Tier.HOST):
+            return None            # warm model: batch path is strictly better
+
+        fut = self.mrm.open_stream(key)
+        blocked_s = 0.0
+        t0 = time.perf_counter()
+        fut.wait_prefix(1)          # stem (+ layer 0) landing / plan known
+        blocked_s += time.perf_counter() - t0
+        if cfg is None:             # cloud-only model: config rides the meta
+            raw = (fut.meta or {}).get("config")
+            if raw is not None:
+                cfg = ModelConfig(**dict(raw))
+                self._cfg_cache[(name, version)] = cfg
+        if fut.plan is None or cfg is None or cfg.family != DENSE:
+            # warm hit / non-streaming primary / unknown config: batch path
+            # (the close below just drops our reference; bytes stay cached)
+            h = fut.result()
+            if h is not None:
+                self.mrm.close(h)
+            return None
+
+        plan = fut.plan
+        # windows needed before layer i can run: every window up to and
+        # including layer i's last (expert windows follow their base window)
+        n_layers = cfg.n_layers
+        per_layer_prefix = [0] * n_layers
+        expert_windows: Dict[int, List[int]] = {}
+        for w in plan:
+            if w.layer_index >= 0 and w.layer_index < n_layers:
+                per_layer_prefix[w.layer_index] = max(
+                    per_layer_prefix[w.layer_index], w.index + 1)
+                if w.group == "expert":
+                    expert_windows.setdefault(w.layer_index, []).append(w.index)
+        if any(p == 0 for p in per_layer_prefix):
+            h = fut.result()
+            if h is not None:
+                self.mrm.close(h)
+            return None
+
+        try:
+            B, S = tokens.shape
+            max_len = S + max_new_tokens
+            exe_e, sig_e = self._executable(cfg, "sembed", B, S, max_len)
+            exe_l, sig_l = self._executable(cfg, "slayer", B, S, max_len)
+            exe_g, sig_g = self._executable(cfg, "slogits", B, S, max_len)
+            exe_de, sig_de = self._executable(cfg, "sdembed", B, 1, max_len)
+            exe_dl, sig_dl = self._executable(cfg, "sdlayer", B, 1, max_len)
+            extra_c = 0.0
+
+            template = M.init_params(cfg, device="meta")
+            stem_tpl = {k: v for k, v in template.items() if k != "layers"}
+
+            def conv(a):
+                return tensor_from_numpy(a, self.device)
+
+            def stem_params():
+                flat = {n: a for n, a in fut.arrays.items()
+                        if not n.startswith("layers/")}
+                return flat_to_params_like(stem_tpl, flat, convert=conv)
+
+            def layer_params(i):
+                flat = {n[len("layers/"):]: fut.arrays[n][i]
+                        for n in fut.arrays if n.startswith("layers/")}
+                return flat_to_params_like(template["layers"], flat, convert=conv)
+
+            t_c0 = time.perf_counter()
+            tw = time.perf_counter()
+            fut.wait_prefix(per_layer_prefix[0])
+            blocked_s += time.perf_counter() - tw
+            stem = stem_params()
+            positions = torch.arange(S, device=self.device)[None, :]
+            toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+            x, dc = self._run_exe(sig_e, exe_e, stem, toks)
+            extra_c += dc
+            layers: List[Any] = []
+            caches: List[Any] = []
+            for i in range(n_layers):
+                tw = time.perf_counter()
+                fut.wait_prefix(per_layer_prefix[i])
+                blocked_s += time.perf_counter() - tw
+                layers.append(layer_params(i))
+                for wi in expert_windows.get(i + 1, ()):   # overlap next layer's
+                    fut.demand(wi)                         # expert bank with math
+                (x, cl), dc = self._run_exe(sig_l, exe_l, layers[i], x, positions)
+                extra_c += dc
+                caches.append(cl)
+            logits, dc = self._run_exe(sig_g, exe_g, stem, x)
+            extra_c += dc
+            tok = logits.argmax(-1)
+            synchronize(self.device)
+            ttft_s = time.perf_counter() - t_start
+            out = [tok]
+            for step in range(max_new_tokens - 1):
+                pos = S + step
+                x, dc = self._run_exe(sig_de, exe_de, stem, tok)
+                extra_c += dc
+                for i in range(n_layers):
+                    (x, caches[i]), dc = self._run_exe(
+                        sig_dl, exe_dl, layers[i], x, caches[i], pos)
+                    extra_c += dc
+                logits, dc = self._run_exe(sig_g, exe_g, stem, x)
+                extra_c += dc
+                tok = logits.argmax(-1)
+                out.append(tok)
+            result = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+            compute_s = max(0.0, time.perf_counter() - t_c0 - extra_c)
+        finally:
+            h = fut.result()            # loader done (verifies all windows)
+            if h is not None:
+                self.mrm.close(h)
+
+        tm = fut.timings
+        st = RequestStats(
+            model=name, cold=True, tier_hit=tm.tier_hit,
+            model_load_s=blocked_s,   # critical-path wait, not wall staging
+            compile_s=extra_c, compute_s=compute_s,
+            total_s=time.perf_counter() - t_start,
+            modeled_load_s=tm.modeled_total(), ttft_s=ttft_s, streamed=True)
         with self._lock:
             self.stats.append(st)
         return result, st

@@ -183,3 +183,36 @@ def test_attention_wrappers_reject_misaligned_layouts(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         tdecode.decode_attention(torch.randn(2, 4, 32, device=cuda_device), kv, kv,
                                  torch.ones(2, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_streamed_tokens_equal_batch_tokens_on_the_card(cuda_device, tmp_path):
+    """A small bf16 DENSE model served streamed from disk, then batched from
+    the host tier and again with a prefix hit: equal tokens, and the streamed
+    request ran the kernels (per-layer caches, in inference mode)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine, publish_model
+
+    cfg = get_config("deepseek-7b").reduced().replace(d_model=256, d_head=64, n_layers=3)
+    disk = DiskStore(str(tmp_path))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    publish_model(disk, cfg, init_params(cfg, gen, device=cuda_device), name="m")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30),
+                          streaming=True, prefix_cache_bytes=64 << 20)
+    ops.reset_launches()
+    streamed, st = eng.generate("m", toks, max_new_tokens=6)
+    assert st.streamed and st.tier_hit == "disk"
+    assert (tflash.launches, tdecode.launches) == (3, 3 * 5)
+    batched, st2 = eng.generate("m", toks, max_new_tokens=6)
+    hit, st3 = eng.generate("m", toks, max_new_tokens=6)
+    assert (st2.streamed, st2.tier_hit, st3.tier_hit) == (False, "host", "device")
+    assert eng.prefix_kv.hits == 1
+    np.testing.assert_array_equal(streamed, batched)
+    np.testing.assert_array_equal(hit, batched)

@@ -30,6 +30,8 @@ def test_port_files_exist():
     files = _port_files()
     assert len(files) > 20
     assert all(f.exists() for f in files)
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"src/repro_torch/core/layerplan.py", "src/repro_torch/serving/prefix_cache.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -40,7 +42,8 @@ def test_no_forbidden_imports(path):
 
 def test_serving_import_leaves_jax_out():
     code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.core.layerplan, "
+            "repro_torch.serving.prefix_cache; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
