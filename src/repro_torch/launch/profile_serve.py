@@ -1,9 +1,11 @@
 """Where the time of one warm serving request goes, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--trace out.json]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--model A|Q] [--trace out.json]
 
-Publishes a full-width deepseek-7b (random weights from a fixed seed, cut to
-4 layers) into a store under ``build/``, serves one cold request
+Publishes a full-width model (random weights from a fixed seed) into a store
+under ``build/``: ``A``, deepseek-7b cut to 4 layers (the default), or ``Q``,
+qwen3-moe-30b-a3b cut to 2 layers (``chip_smoke.py``'s phase 6). Serves one
+cold request
 through the MRM and the engine, then one warm (device-hit) request under
 ``torch.profiler``. Prints one JSON object: the request's host-clock split,
 the device's busy and idle share over the request (union of kernel and copy
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[3]
-LAYERS, B, PROMPT, NEW, SEED = 4, 2, 512, 16, 0
+MODELS = {"A": ("deepseek-7b", 4), "Q": ("qwen3-moe-30b-a3b", 2)}   # arch, layers
+B, PROMPT, NEW, SEED = 2, 512, 16, 0
 PORT_KERNELS = ("flash_fwd", "decode_split_kernel", "rmsnorm_kernel")
 
 
@@ -43,6 +46,7 @@ def _busy_us(intervals):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="A", choices=sorted(MODELS))
     ap.add_argument("--trace", default=None, help="also export a chrome trace here")
     args = ap.parse_args(argv)
 
@@ -57,7 +61,8 @@ def main(argv=None):
     from repro_torch.serving import InferenceEngine, publish_model
 
     device = resolve_device("cuda")
-    cfg = get_config("deepseek-7b").replace(n_layers=LAYERS)
+    arch, layers = MODELS[args.model]
+    cfg = get_config(arch).replace(n_layers=layers)
     store = ROOT / "build" / "profile_store"
     shutil.rmtree(store, ignore_errors=True)
     try:
@@ -95,7 +100,7 @@ def main(argv=None):
     top = [kv for i, kv in enumerate(top) if i < 25 or any(n in kv[0] for n in PORT_KERNELS)]
     out = {
         "device": torch.cuda.get_device_name(0),
-        "config": {"arch": cfg.name, "layers": LAYERS, "batch": B,
+        "config": {"arch": cfg.name, "layers": layers, "batch": B,
                    "prompt": PROMPT, "new": NEW},
         "cold": dataclasses.asdict(cold), "warm": dataclasses.asdict(warm),
         "profiled_wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,

@@ -8,8 +8,9 @@ The store defaults to ``build/serve_store`` in the checkout, so two
 checkouts never share one.
 
 If the store does not hold the model, a reduced-config model for --arch is
-published first (so the command is self-contained for demos/smoke). The
-DENSE family only, in this slice of the port; cross-process sharing
+published first (so the command is self-contained for demos/smoke); a MoE
+arch is published with ``moe_impl="ragged"``, as the JAX launcher does. The
+DENSE and MoE families, in these slices of the port; cross-process sharing
 (``--shm-socket`` in the JAX launcher) comes with a later slice.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.configs import DENSE, ARCHS, get_config
+from repro_torch.configs import DENSE, MOE, ARCHS, get_config
 from repro_torch.core.costmodel import get_hardware
 from repro_torch.core.mrm import MRM, ModelKey
 from repro_torch.core.store import DiskStore
@@ -32,7 +33,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--store", default=str(ROOT / "build" / "serve_store"))
     ap.add_argument("--arch", default="olmo-1b",
-                    choices=sorted(n for n, c in ARCHS.items() if c.family == DENSE))
+                    choices=sorted(n for n, c in ARCHS.items() if c.family in (DENSE, MOE)))
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -53,6 +54,8 @@ def main(argv=None):
     disk = DiskStore(args.store)
     if not disk.contains(ModelKey(FRAMEWORK, args.arch, "1")):
         cfg = get_config(args.arch).reduced()
+        if cfg.n_experts:
+            cfg = cfg.replace(moe_impl="ragged")
         print(f"store empty: publishing reduced {args.arch} "
               f"({cfg.param_count()/1e6:.1f}M params)")
         gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -1,4 +1,4 @@
-"""Model API of the PyTorch port, DENSE family.
+"""Model API of the PyTorch port, DENSE and MoE families.
 
 Mirrors the JAX package's ``models/model.py``. Parameters are a plain nested
 dict of tensors with layers stacked on a leading axis, exactly as the
@@ -17,7 +17,10 @@ Entry points::
   stream_prefill_embed / stream_prefill_layer / stream_logits /
   stream_decode_embed / stream_decode_layer   -> one step of layer streaming
 
-Other families belong to later slices and raise ``NotImplementedError``.
+A MoE layer's ``ffn`` holds a ``router`` and expert banks
+(``models/moe.py``); the layer functions branch on it, as in the JAX model,
+and drop the router's aux loss on the serving path. Other families belong to
+later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,17 +28,18 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 
 Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE:
+    if cfg.family not in (DENSE, MOE):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family belongs to a later slice of the "
-            "PyTorch port (MoE, SSM/hybrid, VLM/enc-dec); this slice serves DENSE")
+            "PyTorch port (SSM/hybrid, VLM/enc-dec); the port serves DENSE and MoE")
 
 
 # ---------------------------------------------------------------------------
@@ -55,7 +59,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             "ln1": L.init_norm(cfg, lead, device),
             "attn": L.init_attention(cfg, lead, generator, device),
             "ln2": L.init_norm(cfg, lead, device),
-            "ffn": L.init_mlp(cfg, lead, generator, device),
+            "ffn": (MoE.init_moe(cfg, lead, generator, device) if cfg.n_experts
+                    else L.init_mlp(cfg, lead, generator, device)),
         },
     }
 
@@ -114,6 +119,13 @@ def _write_kv(cache_layer: Params, k: torch.Tensor, v: torch.Tensor, start: int)
     return cache_layer
 
 
+def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """The layer's MLP, or its MoE when it has a router (aux loss dropped)."""
+    if "router" in p:
+        return MoE.apply_moe(cfg, p, h)[0]
+    return L.apply_mlp(p, h)
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
@@ -127,8 +139,7 @@ def prefill_attn_layer(cfg: ModelConfig, layer: Params, cl: Params,
     o = L.attention_core(cfg, q, k, v, causal=True)
     x = x + L.attention_out(cfg, layer["attn"], o)
     h = L.apply_norm(cfg, layer["ln2"], x)
-    f = L.apply_mlp(layer["ffn"], h)
-    return x + f, _write_kv(cl, k, v, 0)
+    return x + _ffn(cfg, layer["ffn"], h), _write_kv(cl, k, v, 0)
 
 
 @torch.inference_mode()
@@ -164,7 +175,7 @@ def _attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: 
     o = L.decode_attention_core(cfg, q, cl["k"], cl["v"], kv_len)
     x = x + L.attention_out(cfg, p["attn"], o)
     h = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.apply_mlp(p["ffn"], h), cl
+    return x + _ffn(cfg, p["ffn"], h), cl
 
 
 @torch.inference_mode()

@@ -10,8 +10,8 @@ PyTorch runs eagerly, so there is no compiled program to cache: the
 "executable" of a (topology, batch, shape) signature is the model function
 itself, and ``compile_s`` is the measured time of its first call (library
 builds, kernel loads, cuBLAS set-up), timed the way the JAX engine times
-XLA's first run. With ``streaming`` on, a cold DENSE model is served layer
-by layer against a partial open (DESIGN.md §9); with ``prefix_cache_bytes``
+XLA's first run. With ``streaming`` on, a cold DENSE or MoE model is served
+layer by layer against a partial open (DESIGN.md §9); with ``prefix_cache_bytes``
 the batch path reuses the prefill of a prompt it has seen
 (``serving/prefix_cache.py``).
 
@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.core.cache import Tier
 from repro_torch.core.client import LoadedModel, TrimsClient, cold_load, free_model
 from repro_torch.core.mrm import MRM, ModelKey
@@ -98,7 +98,7 @@ class InferenceEngine:
         self.mrm = mrm
         self.framework = framework
         self.use_trims = use_trims and mrm is not None
-        # streaming (DESIGN.md §9): serve DENSE requests layer by layer
+        # streaming (DESIGN.md §9): serve DENSE/MoE requests layer by layer
         # against a partial open — prefill starts once stem+layer0 land.
         # Other families (or warm hits) fall back to the batch path.
         self.streaming = streaming and self.use_trims
@@ -239,7 +239,7 @@ class InferenceEngine:
                  version: str = "1") -> Tuple[np.ndarray, RequestStats]:
         """Prefill + greedy decode. tokens: (B, S) int32.
 
-        With ``streaming`` on, cold DENSE loads are served layer by layer
+        With ``streaming`` on, cold DENSE/MoE loads are served layer by layer
         against a partial open (same tokens, earlier first token); anything
         else falls through to the batch path below."""
         if self.streaming:
@@ -309,8 +309,10 @@ class InferenceEngine:
         layer-0 windows are resident, and chase the stream layer by layer.
         Each window's rows are copied to the device once and reused by every
         decode step (the host arrays become the host tier's entry, so they
-        are never aliased). Returns None to fall back to the batch path
-        (warm hit, a family other than DENSE, or no layer plan)."""
+        are never aliased). MoE expert windows of the NEXT layer are
+        demanded while the current layer computes. Returns None to fall back
+        to the batch path (warm hit, a family other than DENSE/MoE, or no
+        layer plan)."""
         t_start = time.perf_counter()
         key = ModelKey(self.framework, name, version)
         cfg = self._cfg_cache.get((name, version))
@@ -318,7 +320,7 @@ class InferenceEngine:
             cfg = self._config_for(key)
         if cfg is None and not self._fetchable(key):
             return None
-        if cfg is not None and cfg.family != DENSE:
+        if cfg is not None and cfg.family not in (DENSE, MOE):
             return None
         if self.mrm.resident(key, Tier.DEVICE) or \
                 self.mrm.resident(key, Tier.HOST):
@@ -334,7 +336,7 @@ class InferenceEngine:
             if raw is not None:
                 cfg = ModelConfig(**dict(raw))
                 self._cfg_cache[(name, version)] = cfg
-        if fut.plan is None or cfg is None or cfg.family != DENSE:
+        if fut.plan is None or cfg is None or cfg.family not in (DENSE, MOE):
             # warm hit / non-streaming primary / unknown config: batch path
             # (the close below just drops our reference; bytes stay cached)
             h = fut.result()

@@ -216,3 +216,54 @@ def test_streamed_tokens_equal_batch_tokens_on_the_card(cuda_device, tmp_path):
     assert eng.prefix_kv.hits == 1
     np.testing.assert_array_equal(streamed, batched)
     np.testing.assert_array_equal(hit, batched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2, 256])
+def test_capacity_moe_is_bitwise_repeatable_on_the_card(cuda_device, T):
+    """bf16 capacity MoE at qwen3-moe's expert shape (128 experts, top 8):
+    two runs on the same inputs give the same bits (no atomic combine), at
+    a decode batch (T = 2: C = 1, assignments dropped) and a prefill one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+
+    cfg = get_config("qwen3-moe-30b-a3b").replace(d_model=512, d_ff=256)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    p = tmoe.init_moe(cfg, (), g, cuda_device)
+    x = torch.randn(T, cfg.d_model, generator=g, device=cuda_device).to(torch.bfloat16)
+    out1, aux1 = tmoe.moe_capacity(cfg, p, x)
+    out2, aux2 = tmoe.moe_capacity(cfg, p, x)
+    torch.cuda.synchronize()
+    assert out1.dtype == torch.bfloat16 and torch.isfinite(out1).all()
+    assert torch.equal(out1, out2) and torch.equal(aux1, aux2)
+
+
+@pytest.mark.cuda
+def test_moe_streamed_tokens_equal_batch_tokens_on_the_card(cuda_device, tmp_path):
+    """A small bf16 MoE model (GQA, QK-norm, 8 experts top 2) served
+    streamed from disk (expert windows demanded), then batched from the
+    host tier: equal tokens; the streamed request ran the kernels."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceEngine, publish_model
+
+    cfg = get_config("qwen3-moe-30b-a3b").reduced().replace(d_model=256, d_head=64,
+                                                            n_layers=3)
+    disk = DiskStore(str(tmp_path))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    publish_model(disk, cfg, init_params(cfg, gen, device=cuda_device), name="m")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30),
+                          streaming=True)
+    ops.reset_launches()
+    streamed, st = eng.generate("m", toks, max_new_tokens=6)
+    assert st.streamed and st.tier_hit == "disk"
+    assert (tflash.launches, tdecode.launches, trms.launches) == (3, 3 * 5, (4 * 3 + 1) * 6)
+    batched, st2 = eng.generate("m", toks, max_new_tokens=6)
+    assert (st2.streamed, st2.tier_hit) == (False, "host")
+    np.testing.assert_array_equal(streamed, batched)

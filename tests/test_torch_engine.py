@@ -90,18 +90,19 @@ def test_workers_share_one_device_copy(store):
 
 def test_later_slices_raise(store, tmp_path):
     """Streaming and the prefix-KV cache are on; a family of a later slice
-    (MoE) falls from the streaming path to the batch path, which raises."""
+    (SSM) falls from the streaming path to the batch path, which raises.
+    MoE, which streams, is served in tests/test_torch_moe.py."""
     root, _ = store
     eng = _engine(root, streaming=True, prefix_cache_bytes=1 << 20)
     assert eng.streaming and eng.prefix_kv.tier.capacity == 1 << 20
     assert not _engine(root, streaming=True, use_trims=False).streaming
-    cfg = jax_get_config("qwen3-moe-30b-a3b").reduced().replace(n_layers=2)
+    cfg = jax_get_config("mamba2-370m").reduced()
     jax_publish_model(JaxDiskStore(str(tmp_path)), cfg,
-                      jax_init_params(cfg, jax.random.PRNGKey(0)), name="moe")
-    moe = _engine(str(tmp_path), streaming=True)
+                      jax_init_params(cfg, jax.random.PRNGKey(0)), name="ssm")
+    ssm = _engine(str(tmp_path), streaming=True)
     with pytest.raises(NotImplementedError, match="later slice"):
-        moe.generate("moe", np.ones((1, 4), np.int32), max_new_tokens=2)
-    assert moe.mrm.stats()["stream_opens"] == 0
+        ssm.generate("ssm", np.ones((1, 4), np.int32), max_new_tokens=2)
+    assert ssm.mrm.stats()["stream_opens"] == 0
 
 
 def test_serve_cli_on_cpu(tmp_path, capsys):
