@@ -44,8 +44,25 @@ Run from the root of a checkout. Phases, each of which raises on failure
    Q's prefill logits on the card in float32 against the CPU plain path in
    float32, with the bf16 logits' difference and the router's agreement
    printed. Printed as ``{"moe": {...}}``.
+7. CLOUD tier, cross-process sharing and FaaS, over phase 3's store and
+   model A (each request's launches counted from 0 and held to its path):
+   (a) A published into an object store (layer shards, codec ``none``); a
+   fresh MRM over an empty disk serves it as a batch cloud hit (one
+   download), a second streams it (windows ready 0..4, every shard fed
+   before the file is complete), and an MRM whose host tier holds A or B
+   but not both writes A back into an empty store with the same digest;
+   (b) an shm-mode MRM daemon on a unix socket serves A once (a disk hit
+   into shared memory), two client processes (this script with
+   ``--ipc-client``) open A, put it on the card and generate, a third is
+   killed while it holds A and must be released within 5 s, and a device
+   eviction demotes A into a segment holding the device copy's bytes;
+   (c) a FaaS platform runs a function entitled to A in two tenants'
+   containers (the second a device hit on the same storage), refuses an
+   unentitled one, drops the references at teardown, and a router prefers
+   it over a cold platform. Every request's tokens equal phase 3's.
+   Printed as ``{"ipc": ...}``, ``{"cloud": ...}`` and ``{"faas": ...}``.
 
-The last lines are phase 5's and phase 6's summaries, the first port's
+The last lines are the summaries of phases 5, 6 and 7, the first port's
 attention kernel times (constants, labelled ``first_port_ms``), the kernel
 table as JSON (``launches``: phase 3's counts; ``q_launches``: phase 6's;
 ``q_*``: times at Q's shapes), the card's name and
@@ -57,6 +74,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -985,6 +1003,455 @@ def moe_end_to_end(torch, engine, device):
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CLOUD tier, cross-process sharing and the FaaS platform
+# ---------------------------------------------------------------------------
+
+KEY_A = ("repro-torch", "A", "1")
+CLIENT_TIMEOUT_S = 180
+
+
+def greedy(torch, cfg, weights, toks, device):
+    """Prefill plus NEW - 1 greedy decode steps on ``weights`` (a flat name
+    -> tensor or host array map) through the model functions the engine
+    calls. Returns the (B, NEW) int32 tokens."""
+    import numpy as np
+    from repro_torch.device import tensor_from_numpy
+    from repro_torch.models import model as M
+    from repro_torch.serving.weights_io import flat_to_params_like
+
+    params = flat_to_params_like(
+        M.init_params(cfg, device="meta"), weights,
+        convert=lambda v: v if torch.is_tensor(v) else tensor_from_numpy(v, device))
+    S = toks.shape[1]
+    batch = {"tokens": torch.as_tensor(np.asarray(toks), dtype=torch.long, device=device)}
+    logits, cache = M.prefill(cfg, params, batch, max_len=S + NEW)
+    tok = logits.argmax(-1)
+    out = [tok]
+    for i in range(NEW - 1):
+        logits, cache = M.decode_step(cfg, params, cache, tok, S + i)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    return torch.stack(out, dim=1).cpu().numpy().astype("int32")
+
+
+def tokens_sha1(tokens) -> str:
+    import numpy as np
+    return hashlib.sha1(np.ascontiguousarray(tokens, dtype=np.int32).tobytes()).hexdigest()
+
+
+def model_config(store_dir: Path, key=KEY_A):
+    """The config a published file carries in its header."""
+    from repro_torch.configs import ModelConfig
+    from repro_torch.core.store import DiskStore
+    return ModelConfig(**dict(DiskStore(str(store_dir)).open(key).meta["config"]))
+
+
+def ipc_client(sock: str, store_dir: Path, hold: bool, device: str = "cuda") -> int:
+    """A client process of phase 7 (``--ipc-client``): open A through the
+    daemon's socket, put the attached host arrays on the card, generate,
+    print one JSON line. With ``hold`` it prints once A is open and then
+    waits to be killed."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.core.shm_ipc import RemoteTrimsClient
+    from repro_torch.device import resolve_device, synchronize, tensor_from_numpy
+    from repro_torch.kernels import ops
+
+    device = resolve_device(device)
+    cfg = model_config(store_dir)
+    toks = prompt(cfg.vocab_size)
+    client = RemoteTrimsClient(sock)
+    t0 = time.perf_counter()
+    h = client.open(*KEY_A)
+    open_s = time.perf_counter() - t0
+    if hold:
+        log(json.dumps({"held": h.handle_id}))
+        time.sleep(CLIENT_TIMEOUT_S)
+        return 1
+    t0 = time.perf_counter()
+    weights = {n: tensor_from_numpy(a, device) for n, a in h.arrays.items()}
+    synchronize(device)
+    h2d_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = greedy(torch, cfg, weights, toks, device)
+    compute_s = time.perf_counter() - t0
+    launches = counts(ops)
+    client.close(h)
+    client.disconnect()
+    log(json.dumps({"tokens_sha1": tokens_sha1(out), "tier_hit": h.timings["tier_hit"],
+                    "open_s": open_s, "attach_s": h.attach_s, "h2d_s": h2d_s,
+                    "h2d_bytes": sum(t.numel() * t.element_size() for t in weights.values()),
+                    "compute_s": compute_s, "launches": launches,
+                    "daemon_timings": h.timings}))
+    return 0
+
+
+def _client_cmd(sock: str, store_dir: Path, device, hold: bool = False):
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--ipc-client", sock,
+           "--store", str(store_dir), "--device", str(device)]
+    return cmd + (["--hold"] if hold else [])
+
+
+def _bits(torch, t):
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def cloud_phase(torch, store_dir: Path, build: Path, device, caps, want_tokens):
+    """(a) A from an object store: a batch cloud hit, a streamed cloud hit
+    whose windows the shard callbacks feed before the file lands, and the
+    write-back of A by an MRM whose host tier holds A or B but not both."""
+    import numpy as np
+    from repro_torch.core import mrm as mrm_mod
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.objectstore import ObjectStore
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceEngine
+
+    cfg = model_config(store_dir)
+    toks, hw, src = prompt(cfg.vocab_size), get_hardware(), DiskStore(str(store_dir))
+    key = mrm_mod.ModelKey(*KEY_A)
+    want = path_launches(cfg)
+    store = ObjectStore(str(build / "cloud"))
+    t0 = time.perf_counter()
+    # layer-planned shards (one or more per window): the streaming open's
+    # wire leg; codec "none": random bf16 weights do not compress
+    digest = store.put_file(key, src.path_for(key), codec="none", shard_plan="layers",
+                            shard_bytes=256 * 2 ** 20)
+    put_s = time.perf_counter() - t0
+    n_shards = len(store.shard_table(key))
+    log(f"published A into the object store: {n_shards} shards in {put_s:.1f} s")
+
+    def serve(engine, label):
+        ops.reset_launches()
+        out, st = engine.generate("A", toks, NEW)
+        launches = counts(ops)
+        log(json.dumps({"cloud_request": label, **dataclasses.asdict(st)}))
+        if not np.array_equal(out, want_tokens):
+            raise AssertionError(f"phase 7 {label}: tokens differ from phase 3's")
+        if launches != want:
+            raise AssertionError(f"phase 7 {label}: launches {launches}, path implies {want}")
+        return st, launches
+
+    # 1. batch: a fresh MRM over an empty disk; the engine reads a model's
+    # config from its local file, so a cloud-only key's config comes from
+    # the publisher (here the source file's header)
+    disk = DiskStore(str(build / "cloud_disk1"))
+    mrm = mrm_mod.MRM(disk, device_capacity=caps[0], host_capacity=caps[1], hw=hw,
+                      device=device, objectstore=store)
+    engine = InferenceEngine(disk, mrm, device=device)
+    engine._cfg_cache[("A", "1")] = cfg
+    st1, l1 = serve(engine, "batch")
+    if st1.tier_hit != "cloud" or mrm.stats()["cloud_downloads"] != 1:
+        raise AssertionError(f"batch cloud open: tier {st1.tier_hit}, "
+                             f"downloads {mrm.stats()['cloud_downloads']}")
+    del engine, mrm
+    torch.cuda.empty_cache()
+
+    # 2. streamed: windows fed by the shard callbacks of the fetch
+    disk = DiskStore(str(build / "cloud_disk2"))
+    mrm = mrm_mod.MRM(disk, device_capacity=caps[0], host_capacity=caps[1], hw=hw,
+                      device=device, objectstore=store)
+    engine = InferenceEngine(disk, mrm, device=device, streaming=True)
+    order, ready, shards = [], [], []
+    mark, fetch = mrm_mod.LoadFuture._mark_window, store.fetch
+
+    def recording_mark(fut, index):
+        if fut.streaming:
+            order.append(index)
+            ready.append(time.perf_counter())
+        mark(fut, index)
+
+    def watching_fetch(k, dest, report_out=None, on_shard=None):
+        def fed(row, data):
+            shards.append((time.perf_counter(), os.path.exists(dest.path_for(k))))
+            on_shard(row, data)
+        return fetch(k, dest, report_out=report_out,
+                     on_shard=fed if on_shard is not None else None)
+
+    mrm_mod.LoadFuture._mark_window = recording_mark
+    store.fetch = watching_fetch
+    t_req = time.perf_counter()
+    try:
+        st2, l2 = serve(engine, "streamed")
+    finally:
+        mrm_mod.LoadFuture._mark_window = mark
+        del store.fetch
+    n_windows = 1 + cfg.n_layers
+    if (st2.tier_hit, st2.streamed) != ("cloud", True):
+        raise AssertionError(f"streamed cloud open: tier {st2.tier_hit}, streamed {st2.streamed}")
+    if order != list(range(n_windows)):
+        raise AssertionError(f"streamed cloud open: windows ready in the order {order}")
+    if len(shards) != n_shards or any(landed for _, landed in shards):
+        raise AssertionError(f"streamed cloud open: {len(shards)} of {n_shards} shards fed, "
+                             f"file complete before {sum(x for _, x in shards)} of them")
+    del engine, mrm
+    torch.cuda.empty_cache()
+
+    # 3. write-back: serving B pushes A out of the host tier, and the worker
+    # publishes A into a second, empty object store
+    sizes = {n: src.open(("repro-torch", n, "1")).total_bytes for n in "AB"}
+    wb = ObjectStore(str(build / "cloud_wb"))
+    puts, put_file = [], wb.put_file
+
+    def timed_put(*a, **kw):
+        t0 = time.perf_counter()
+        r = put_file(*a, **kw)
+        puts.append(time.perf_counter() - t0)
+        return r
+
+    wb.put_file = timed_put
+    mrm = mrm_mod.MRM(src, device_capacity=8 * GiB, host_capacity=sizes["A"] + sizes["B"] // 2,
+                      hw=hw, device=device, objectstore=wb, writeback_to_cloud=True)
+    engine = InferenceEngine(src, mrm, device=device)
+    st3, _ = serve(engine, "writeback A")
+    ops.reset_launches()
+    engine.generate("B", toks, NEW)
+    l4 = counts(ops)
+    if l4 != path_launches(engine._config_for(mrm_mod.ModelKey("repro-torch", "B", "1"))):
+        raise AssertionError(f"phase 7 writeback B: launches {l4}")
+    t0 = time.perf_counter()
+    mrm.flush_writebacks()
+    flush_s = time.perf_counter() - t0
+    wst = mrm.stats()
+    mrm.shutdown()
+    if wst["cloud_writebacks"] < 1 or wst["cloud_writeback_errors"] != 0:
+        raise AssertionError(f"write-back: {wst['cloud_writebacks']} done, "
+                             f"{wst['cloud_writeback_errors']} failed")
+    if not wb.contains(key) or wb.stat(key)["digest"] != digest:
+        raise AssertionError("write-back: the second store's digest for A differs")
+    del engine, mrm
+    torch.cuda.empty_cache()
+    log(f"cloud: batch {st1.ttft_s:.3f} s, streamed {st2.ttft_s:.3f} s to the first token; "
+        f"write-back {puts}")
+    return {"put_s": put_s, "shards": n_shards, "digest": digest,
+            "batch": {**dataclasses.asdict(st1), "launches": l1},
+            "streamed": {**dataclasses.asdict(st2),
+                         "windows": order, "window_ready_s": [t - t_req for t in ready],
+                         "shard_fed_s": [t - t_req for t, _ in shards], "launches": l2},
+            "writeback": {"cloud_writebacks": wst["cloud_writebacks"],
+                          "cloud_writeback_errors": wst["cloud_writeback_errors"],
+                          "put_s": puts, "flush_wait_s": flush_s,
+                          "host_capacity": sizes["A"] + sizes["B"] // 2}}
+
+
+def ipc_phase(torch, store_dir: Path, device, caps, want_tokens):
+    """(b) A shm-mode MRM daemon on a unix socket: its own engine serves A
+    (a disk hit into shared memory), two client processes open A, put it on
+    the card and generate, a third is killed while it holds A, and a device
+    eviction demotes A into a segment."""
+    import select
+    import signal
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import mrm as mrm_mod
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.shm_ipc import MRMServer
+    from repro_torch.core.store import DiskStore
+    from repro_torch.device import tensor_from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceEngine
+
+    free = shutil.disk_usage("/dev/shm").free
+    size_a = DiskStore(str(store_dir)).open(KEY_A).total_bytes
+    if free < 2 * size_a:
+        raise RuntimeError(f"/dev/shm has {free} bytes free; phase 7 needs {2 * size_a} "
+                           f"(A twice: its host copy and its demoted copy)")
+    key = mrm_mod.ModelKey(*KEY_A)
+    cfg = model_config(store_dir)
+    disk = DiskStore(str(store_dir))
+    mrm = mrm_mod.MRM(disk, device_capacity=caps[0], host_capacity=caps[1],
+                      hw=get_hardware(), device=device, use_shm=True)
+    sockdir = tempfile.mkdtemp(prefix="trims-", dir="/tmp")
+    server = MRMServer(mrm, os.path.join(sockdir, "mrm.sock"))
+    procs = []
+    try:
+        engine = InferenceEngine(disk, mrm, device=device)
+        ops.reset_launches()
+        out, st = engine.generate("A", prompt(cfg.vocab_size), NEW)
+        daemon_launches = counts(ops)
+        if st.tier_hit != "disk" or not np.array_equal(out, want_tokens):
+            raise AssertionError(f"daemon request: tier {st.tier_hit}, tokens equal "
+                                 f"{np.array_equal(out, want_tokens)}")
+        if daemon_launches != path_launches(cfg):
+            raise AssertionError(f"daemon request: launches {daemon_launches}")
+        (seg,) = mrm.host.peek(key).payload.shm_segments
+        clients = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            r = subprocess.run(_client_cmd(server.sock_path, store_dir, device), capture_output=True,
+                               text=True, timeout=CLIENT_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise RuntimeError(f"client {i} exited {r.returncode}:\n{r.stderr[-4000:]}")
+            res = json.loads(r.stdout.strip().splitlines()[-1])
+            res["process_s"] = wall
+            clients.append(res)
+            log(json.dumps({"ipc_client": i, **res}))
+            if not os.path.exists(f"/dev/shm/{seg.name}"):
+                raise AssertionError(f"client {i}'s exit unlinked the daemon's segment")
+        want_sha = tokens_sha1(want_tokens)
+        for i, c in enumerate(clients):
+            if c["tokens_sha1"] != want_sha:
+                raise AssertionError(f"client {i}: tokens differ from phase 3's")
+            if c["launches"] != path_launches(cfg):
+                raise AssertionError(f"client {i}: launches {c['launches']}")
+        if clients[1]["tier_hit"] != "host":
+            raise AssertionError(f"second client: tier {clients[1]['tier_hit']}")
+        disk_loads = mrm.stats()["disk_loads"]
+        if disk_loads != 1:
+            raise AssertionError(f"daemon disk_loads {disk_loads}")
+        if mrm.host.peek(key).refcount != 0:
+            raise AssertionError(f"A's host refcount {mrm.host.peek(key).refcount} after close")
+
+        # a client killed while it holds A
+        proc = subprocess.Popen(_client_cmd(server.sock_path, store_dir, device, hold=True),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        ready, _, _ = select.select([proc.stdout], [], [], CLIENT_TIMEOUT_S)
+        line = proc.stdout.readline() if ready else ""
+        if not line or mrm.host.peek(key).refcount != 1:
+            raise RuntimeError(f"holding client: {line!r}, refcount "
+                               f"{mrm.host.peek(key).refcount}:\n"
+                               f"{proc.stderr.read() if proc.poll() is not None else ''}")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+        while mrm.host.peek(key).refcount and time.perf_counter() - t0 < 5:
+            time.sleep(0.01)
+        release_s = time.perf_counter() - t0
+        if mrm.host.peek(key).refcount != 0:
+            raise AssertionError("the daemon kept the killed client's reference")
+
+        # device eviction in shm mode: B and C push A out of the host tier,
+        # then B on the device evicts A, which is demoted into a segment
+        dev = dict(mrm.device.peek(key).payload)
+        mrm.prefetch(mrm_mod.ModelKey("repro-torch", "B", "1"), tier="host").result()
+        mrm.prefetch(mrm_mod.ModelKey("repro-torch", "C", "1"), tier="host").result()
+        if mrm.host.peek(key) is not None:
+            raise AssertionError("A still on the host tier before the eviction")
+        demote, timed = mrm._demote_device_payload, []
+
+        def timed_demote(victim):
+            t0 = time.perf_counter()
+            r = demote(victim)
+            timed.append(time.perf_counter() - t0)
+            return r
+
+        mrm.tiers.demote_fn = timed_demote
+        mrm.close(mrm.open(mrm_mod.ModelKey("repro-torch", "B", "1")))
+        mrm.tiers.demote_fn = demote
+        entry = mrm.host.peek(key)
+        if entry is None or len(entry.payload.shm_segments) != 1 or len(timed) != 1:
+            raise AssertionError("A was not demoted into a segment")
+        for n, t in dev.items():
+            got = tensor_from_numpy(entry.payload.arrays[n], device)
+            if not torch.equal(_bits(torch, got), _bits(torch, t)):
+                raise AssertionError(f"demoted {n} differs from the device copy")
+        del dev, engine
+        summary = {"daemon": {"tier_hit": st.tier_hit, "ttft_s": st.ttft_s,
+                              "model_load_s": st.model_load_s, "launches": daemon_launches},
+                   "clients": clients, "disk_loads": disk_loads,
+                   "killed_release_s": release_s, "demotion_s": timed[0],
+                   "demoted_bytes": entry.nbytes, "segment_bytes": size_a}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+            p.stdout.close()
+            p.stderr.close()
+        server.stop()
+        for e in list(mrm.host.entries.values()):
+            if e.payload is not None:
+                e.payload.release()
+        shutil.rmtree(sockdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"ipc: clients {[c['tier_hit'] for c in clients]}, "
+        f"attach {[round(c['attach_s'], 4) for c in clients]} s")
+    return summary
+
+
+def faas_phase(torch, store_dir: Path, device, caps, want_tokens):
+    """(c) A FaaS platform over a card MRM: containers of two tenants run a
+    function entitled to A, an unentitled one is refused, teardown drops
+    the references, and a router prefers the warm platform over a cold one."""
+    import numpy as np
+    from repro_torch.core import mrm as mrm_mod
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.faas import FaaSPlatform, IsolationError, Router
+    from repro_torch.core.store import DiskStore
+    from repro_torch.core.tenant import RequestContext
+    from repro_torch.kernels import ops
+
+    key = mrm_mod.ModelKey(*KEY_A)
+    cfg = model_config(store_dir)
+    toks = prompt(cfg.vocab_size)
+
+    def platform(name):
+        mrm = mrm_mod.MRM(DiskStore(str(store_dir)), device_capacity=caps[0],
+                          host_capacity=caps[1], hw=get_hardware(), device=device)
+        return FaaSPlatform(mrm, name=name)
+
+    seen = []
+
+    def fn(ctx, payload):
+        m = ctx.load_model(*KEY_A[:2])
+        ops.reset_launches()
+        out = greedy(torch, cfg, m.weights, payload, device)
+        seen.append({"tier_hit": m.timings.tier_hit, "launches": counts(ops),
+                     "embed_ptr": m.weights["embed"].data_ptr()})
+        return out
+
+    warm = platform("warm")
+    for tenant in ("t1", "t2"):
+        warm.deploy(f"gen-{tenant}", fn, allowed_models=[KEY_A[:2]], prewarm=False)
+    times = []
+    for tenant in ("t1", "t2"):
+        t0 = time.perf_counter()
+        out = warm.invoke(f"gen-{tenant}", toks, ctx=RequestContext(tenant=tenant))
+        times.append(time.perf_counter() - t0)
+        if not np.array_equal(out, want_tokens):
+            raise AssertionError(f"FaaS {tenant}: tokens differ from phase 3's")
+    if [s["tier_hit"] for s in seen] != ["disk", "device"] or \
+            seen[0]["embed_ptr"] != seen[1]["embed_ptr"]:
+        raise AssertionError(f"FaaS: {seen}")
+    if any(s["launches"] != path_launches(cfg) for s in seen):
+        raise AssertionError(f"FaaS launches {[s['launches'] for s in seen]}")
+    warm.deploy("sneaky", fn, allowed_models=[("repro-torch", "B")], prewarm=False)
+    try:
+        warm.invoke("sneaky", toks)
+        raise AssertionError("an unentitled container loaded A")
+    except IsolationError:
+        pass
+    refs = warm.mrm.refcount(key)
+    for tenant in ("t1", "t2"):
+        warm.undeploy(f"gen-{tenant}")
+    if (refs, warm.mrm.refcount(key)) != (2, 0):
+        raise AssertionError(f"refcount {refs} before teardown, "
+                             f"{warm.mrm.refcount(key)} after")
+    cold = platform("cold")
+    for node in (cold, warm):
+        node.deploy("gen", fn, allowed_models=[KEY_A[:2]], prewarm=False)
+    router = Router([cold, warm])
+    if router.route("gen", [KEY_A]) is not warm:
+        raise AssertionError("the router did not prefer the warm platform")
+    out = router.invoke("gen", toks, needed_models=[KEY_A])
+    if not np.array_equal(out, want_tokens) or router.dispatches != {"cold": 0, "warm": 1}:
+        raise AssertionError(f"routed invoke: dispatches {router.dispatches}")
+    for node in (cold, warm):
+        node.undeploy("gen")
+    del cold, warm
+    torch.cuda.empty_cache()
+    log(f"faas: tiers {[s['tier_hit'] for s in seen]}, invoke {times} s")
+    return {"invocations": [{**s, "invoke_s": t} for s, t in zip(seen, times)],
+            "routed": seen[2], "dispatches": router.dispatches,
+            "refcount_before_teardown": refs}
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -1003,7 +1470,15 @@ SOURCES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write every result here as JSON")
+    ap.add_argument("--ipc-client", metavar="SOCKET", default=None,
+                    help="run as one of phase 7's client processes against this socket")
+    ap.add_argument("--store", default=None, help="(client) the daemon's model store")
+    ap.add_argument("--hold", action="store_true",
+                    help="(client) open A, report, and wait to be killed")
+    ap.add_argument("--device", default="cuda", help="(client) the daemon's device")
     args = ap.parse_args()
+    if args.ipc_client:
+        return ipc_client(args.ipc_client, Path(args.store), args.hold, args.device)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -1033,7 +1508,9 @@ def main() -> int:
 
     # 3. serve, 4. end to end
     store_dir = ROOT / "build" / "smoke_store"
-    shutil.rmtree(store_dir, ignore_errors=True)
+    cloud_dir = ROOT / "build" / "smoke_cloud"
+    for d in (store_dir, cloud_dir):
+        shutil.rmtree(d, ignore_errors=True)
     try:
         # full width: d_model 4096, 32 heads of 128, d_ff 11008, vocab 102400
         caps = (3 * GiB, int(4.5 * GiB))
@@ -1044,22 +1521,31 @@ def main() -> int:
         batch_disk_hit = next(s for s in engine.stats if s.model == "A")
         del engine
         stream = stream_phase(torch, store_dir, device, caps, tokens_a, batch_disk_hit)
-    finally:
-        shutil.rmtree(store_dir, ignore_errors=True)
 
-    # 6. MoE: qwen3-moe-30b-a3b at full width (d_model 2048, 32 query and 4
-    # KV heads of 128, QK-norm, 128 experts top 8 of d_ff 768, vocab 151936),
-    # cut to 2 layers, in a store of its own
-    moe_dir = ROOT / "build" / "smoke_store_moe"
-    shutil.rmtree(moe_dir, ignore_errors=True)
-    try:
-        torch.cuda.empty_cache()
-        moe_engine, moe = moe_phase(torch, moe_dir, get_config("qwen3-moe-30b-a3b").replace(
-            n_layers=2), device, (8 * GiB, 8 * GiB))
-        moe["end_to_end"] = moe_end_to_end(torch, moe_engine, device)
-        del moe_engine
-    finally:
+        # 6. MoE: qwen3-moe-30b-a3b at full width (d_model 2048, 32 query and 4
+        # KV heads of 128, QK-norm, 128 experts top 8 of d_ff 768, vocab
+        # 151936), cut to 2 layers, in a store of its own
+        moe_dir = ROOT / "build" / "smoke_store_moe"
         shutil.rmtree(moe_dir, ignore_errors=True)
+        try:
+            torch.cuda.empty_cache()
+            moe_engine, moe = moe_phase(torch, moe_dir, get_config("qwen3-moe-30b-a3b").replace(
+                n_layers=2), device, (8 * GiB, 8 * GiB))
+            moe["end_to_end"] = moe_end_to_end(torch, moe_engine, device)
+            del moe_engine
+        finally:
+            shutil.rmtree(moe_dir, ignore_errors=True)
+
+        # 7. the CLOUD tier, cross-process sharing and FaaS, over phase 3's store
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cloud = cloud_phase(torch, store_dir, cloud_dir, device, caps, tokens_a)
+        ipc = ipc_phase(torch, store_dir, device, caps, tokens_a)
+        faas = faas_phase(torch, store_dir, device, caps, tokens_a)
+        log(f"phase 7 passed in {time.perf_counter() - t0:.1f} s")
+    finally:
+        for d in (store_dir, cloud_dir):
+            shutil.rmtree(d, ignore_errors=True)
     q_launches = {k: sum(x[k] for x in moe["launches"]) for k in moe["launches"][0]}
 
     table = []
@@ -1080,10 +1566,13 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
-             "stream": stream, "moe": moe,
+             "stream": stream, "moe": moe, "cloud": cloud, "ipc": ipc, "faas": faas,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"ipc": ipc}))
+    print(json.dumps({"cloud": cloud}))
+    print(json.dumps({"faas": faas}))
     print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)

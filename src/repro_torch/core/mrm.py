@@ -8,7 +8,8 @@ Fig. 7 state machine as a :class:`LoadFuture`:
   DEVICE miss / HOST hit -> make room on device, stage host->device
   HOST+DEVICE miss       -> disk, then a *chunked pipelined*
                             disk->host->device staging chain
-  DISK miss              -> fetch from the CLOUD tier (CloudStore),
+  DISK miss              -> fetch from a peer node or the CLOUD tier
+                            (whichever the cost model says is cheaper),
                             then the cold chain above (DESIGN.md §6)
 
 Models are addressed by namespace ``(framework, name, version)``. Entries
@@ -23,13 +24,13 @@ staging model.
 
 PyTorch port: the device tier holds torch tensors on ``MRM.device_name``
 (CUDA by default). Every handle of one model receives the same device
-tensors. Streaming opens (``open_stream``, DESIGN.md §9) read the local
-file window by window. Cross-process sharing (``use_shm``), the object
-store with its write-back and the cluster's peer fetch belong to later
-slices of the port: their arguments raise ``NotImplementedError`` here.
+tensors. In shm mode (``use_shm``) the HOST tier lives in POSIX shared
+memory that client processes attach (``core.shm_ipc``), and a device
+demotion copies each tensor from the card straight into its segment.
 """
 from __future__ import annotations
 
+import inspect
 import itertools
 import threading
 import time
@@ -47,8 +48,11 @@ from repro_torch.core.pipeline import plan_chunks, run_pipeline
 from repro_torch.core.slo import DEFAULT_HORIZON_S, SLOState
 from repro_torch.core.store import CloudStore, DiskStore, ModelFile, _np_dtype
 from repro_torch.core.tenant import RequestContext
-from repro_torch.device import resolve_device, synchronize, tensor_from_numpy, tensor_to_numpy
+from repro_torch.device import (numpy_dtype, resolve_device, synchronize,
+                                tensor_from_numpy, tensor_into_numpy, tensor_to_numpy)
 
+# write-back queue shutdown sentinel (MRM.shutdown)
+_WB_SENTINEL = object()
 # bound on the evicted-key tracking map feeding the misprediction metric
 _EVICT_TRACK_MAX = 1024
 
@@ -132,7 +136,22 @@ class ModelHandle:
     private: bool = False
 
 
-_LATER_SLICE = "belongs to a later slice of the PyTorch port"
+def _accepts_kwarg(fn, name: str) -> bool:
+    """True when ``fn`` can be called with keyword argument ``name``
+    (either an explicit parameter or ``**kwargs``). Used to keep the
+    streaming ``on_shard`` kwarg backward compatible with legacy
+    remote-fetch hooks and store stubs installed by tests."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    for p in sig.parameters.values():
+        if p.kind is inspect.Parameter.VAR_KEYWORD:
+            return True
+        if p.name == name and p.kind in (inspect.Parameter.KEYWORD_ONLY,
+                                         inspect.Parameter.POSITIONAL_OR_KEYWORD):
+            return True
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -343,12 +362,6 @@ class MRM:
                  writeback_to_cloud: bool = False,
                  cloud_codec: Optional[str] = None,
                  device="cuda"):
-        if use_shm:
-            raise NotImplementedError(
-                f"use_shm (shm / CUDA-IPC sharing) {_LATER_SLICE}")
-        if objectstore is not None or writeback_to_cloud or cloud_codec is not None:
-            raise NotImplementedError(
-                f"objectstore / writeback_to_cloud / cloud_codec {_LATER_SLICE}")
         self.device_name = resolve_device(device)
         if device_capacity is None:
             if self.device_name.type != "cuda":
@@ -357,7 +370,11 @@ class MRM:
             device_capacity = torch.cuda.mem_get_info(self.device_name)[0]
         self.disk = disk
         self.cloud = cloud
+        self.objectstore = objectstore  # CLOUD tier (core.objectstore)
         self.hw = hw or get_hardware()
+        # cluster hook (core.cluster): fn(key, timings) -> bool resolving a
+        # DISK miss from a cheaper source (peer link) before the CLOUD tier
+        self.remote_fetch: Optional[Callable] = None
         # SLO-aware eviction (policy="slo", DESIGN.md §7): one shared
         # arrival predictor feeds per-tier CostAware policies whose reload
         # cost is priced from each tier's own backing tier
@@ -402,6 +419,8 @@ class MRM:
             "cloud_downloads": 0, "disk_loads": 0, "h2d_stages": 0,
             "bytes_from_disk": 0, "bytes_h2d": 0,
             "prefetches": 0, "pipelined_loads": 0,
+            "peer_fetches": 0, "gather_fetches": 0, "cloud_writebacks": 0,
+            "cloud_writeback_errors": 0,
             # streaming (partial) opens — DESIGN.md §9
             "stream_opens": 0, "stream_loads": 0, "partial_loads": 0,
             # modeled seconds of work this node performed — survives open
@@ -433,12 +452,41 @@ class MRM:
         self._device_keys: set = set()
         self._evict_lock = threading.Lock()
         self.device.add_listener(self._on_device_event)
+        self.writeback_to_cloud = writeback_to_cloud
+        # codec for CLOUD write-backs (None -> the object store's default);
+        # fetches always decode whatever codec the manifest records
+        self.cloud_codec = cloud_codec
+        self._wb_queue = None
+        self._wb_thread = None
+        self._wb_shutdown = False
+        # serializes {flag check, put} against shutdown's {flag set, put
+        # sentinel}: without it a straggler put can land after the worker
+        # exits and leave queue.join() waiting forever. Leaf lock (taken
+        # under the host cache lock by the listener).
+        self._wb_lock = threading.Lock()
+        if writeback_to_cloud and objectstore is not None:
+            self._start_writeback()
+
+    def attach_objectstore(self, objectstore) -> None:
+        """Late-bind the CLOUD tier (the ``Cluster.add_node`` path); arms
+        the demotion write-back worker if it was requested at construction."""
+        self.objectstore = objectstore
+        if self.writeback_to_cloud and self._wb_queue is None:
+            self._start_writeback()
 
     def _device_put(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on ``device_name`` (bf16 through its uint16
         bits). A plain synchronous copy; the stage that calls it
         synchronises before its busy time is read."""
         return tensor_from_numpy(arr, self.device_name)
+
+    def _start_writeback(self) -> None:
+        import queue
+        self._wb_queue = queue.Queue()
+        self.host.add_listener(self._on_host_remove)
+        self._wb_thread = threading.Thread(target=self._writeback_worker,
+                                           daemon=True, name="mrm-writeback")
+        self._wb_thread.start()
 
     # ------------------------------------------- SLO-aware eviction support
     def _device_backing_tier(self, key, nbytes: int) -> Optional[Tier]:
@@ -553,7 +601,7 @@ class MRM:
     # ------------------------------------------------ tenancy & admission
     def _nbytes_hint(self, key: ModelKey) -> int:
         """Best-effort size of ``key`` from the warmest source that knows it
-        (tier entry, local file); 0 when nobody does."""
+        (tier entry, local file, CLOUD manifest); 0 when nobody does."""
         for cache in (self.device, self.host):
             e = cache.peek(key)
             if e is not None:
@@ -564,6 +612,11 @@ class MRM:
                 return os.path.getsize(self.disk.path_for(key))
             except OSError:
                 pass
+        obj = self.objectstore
+        if obj is not None and hasattr(obj, "stat"):
+            st = obj.stat(key)
+            if st:
+                return st.get("nbytes", 0)
         return 0
 
     def estimated_ready_s(self, key: ModelKey) -> float:
@@ -695,8 +748,9 @@ class MRM:
                     ctx: Optional[RequestContext] = None) -> LoadFuture:
         """Partial open (DESIGN.md §9): a host-tier open whose future
         exposes per-layer readiness — ``wait_prefix``/``windows_ready``
-        fire as each layer window's bytes land, in execution order, fed by
-        a demand-reorderable window reader over the local file.
+        fire as each layer window's bytes land and verify, in execution
+        order, fed by the gather/fetch shard pipeline on the wire leg and
+        by a demand-reorderable window reader on the disk leg.
 
         ``components`` restricts staging to a subset of window groups
         (``"stem"``, ``"encoder"``, ``"layer"``, ``"expert"``) — e.g.
@@ -707,9 +761,15 @@ class MRM:
 
         Host-tier hits and coalescing behave exactly as :meth:`open_async`
         — a warm model simply completes the future with ``plan = None``
-        (nothing to wait for).
+        (nothing to wait for). In shm (cross-process) mode streaming
+        degrades to an ordinary host open.
         """
         key = ModelKey(*key)
+        if self.use_shm:
+            # shm segments are carved per-tensor up front and shared by
+            # name — per-window scatter into them is not supported
+            return self.open_async(key, tier="host", want_handle=want_handle,
+                                   ctx=ctx)
         self._note_ctx(key, ctx)
         fut = LoadFuture(key, tier="host", want_handle=want_handle,
                          streaming=True, components=components, ctx=ctx)
@@ -767,6 +827,8 @@ class MRM:
                 if e.refcount > 0 or e.pinned:
                     out["busy"] = True
                     continue
+                # a drop is not a demotion: null the payload so the host
+                # write-back listener does not republish the copy to CLOUD
                 payload = e.payload
                 e.payload = None
                 cache.remove(key)
@@ -927,8 +989,8 @@ class MRM:
 
         fresh = host_entry is None
         if fresh:
-            # provisional: _ensure_on_disk overwrites with "cloud" when
-            # the model has to be fetched from outside this node
+            # provisional: _ensure_on_disk overwrites with "peer"/"cloud"
+            # when the model has to be fetched from outside this node
             timings.tier_hit = "disk"
             if fut.streaming:
                 return self._load_host_streaming(fut)
@@ -960,14 +1022,51 @@ class MRM:
                     host_entry.refcount -= 1
         return self._finish_entry(fut, self.device, dev_entry, unpin=True)
 
-    def _ensure_on_disk(self, key, timings):
-        """DISK-miss fall-through (DESIGN.md §6): download from the CLOUD
-        tier (CloudStore). The cluster's peer fetch and the object store
-        come with later slices of the port."""
+    def _ensure_on_disk(self, key, timings, on_shard=None, ctx=None):
+        """DISK-miss fall-through (DESIGN.md §6): peer link first when a
+        cluster hook is attached and picks a cheaper source, then the CLOUD
+        tier (content-addressed ObjectStore, or the legacy CloudStore).
+
+        ``on_shard(row, data)`` (streaming opens, §9) is forwarded to any
+        source that can deliver digest-verified shards incrementally —
+        the cluster gather and the ObjectStore's sharded fetch. ``ctx``
+        (the request's :class:`~repro_torch.core.tenant.RequestContext`) rides
+        along to a context-aware cluster hook so the serving peers see the
+        same tenant/deadline the local open carries. Sources that predate
+        either kwarg (legacy hooks/stores) are called without it; the
+        caller then streams from disk after the file lands."""
         if self.disk.contains(key):
             return
-        if self.cloud is not None and self.cloud.contains(key):
-            modeled, _ = self.cloud.download(key, self.disk)
+        if self.remote_fetch is not None:
+            kwargs = {}
+            if on_shard is not None and _accepts_kwarg(self.remote_fetch,
+                                                       "on_shard"):
+                kwargs["on_shard"] = on_shard
+            if ctx is not None and _accepts_kwarg(self.remote_fetch, "ctx"):
+                kwargs["ctx"] = ctx
+            ok = self.remote_fetch(key, timings, **kwargs)
+            if ok:
+                if timings.tier_hit in ("", "disk"):
+                    # the hook may claim a more specific hit ("gather", §8)
+                    timings.tier_hit = "peer"
+                return
+        for store in (self.cloud, self.objectstore):
+            if store is None or not store.contains(key):
+                continue
+            if hasattr(store, "fetch"):  # ObjectStore: compression-aware
+                sink: list = []
+                kwargs = {"report_out": sink}
+                if on_shard is not None and _accepts_kwarg(store.fetch,
+                                                           "on_shard"):
+                    kwargs["on_shard"] = on_shard
+                modeled, _ = store.fetch(key, self.disk, **kwargs)
+                report = sink[0] if sink else None
+                if report is not None:  # compressed blob: decode pipelined
+                    timings.decompress_s += report.stage("decompress").busy_s
+                    timings.stage_overlap_s += report.overlap_s()
+                    timings.chunks = max(timings.chunks, report.n_chunks)
+            else:  # legacy CloudStore
+                modeled, _ = store.download(key, self.disk)
             timings.cloud_s = modeled
             timings.tier_hit = "cloud"
             with self._lock:
@@ -976,16 +1075,99 @@ class MRM:
             return
         raise FileNotFoundError(f"model {key} not found in any tier")
 
-    def _host_sink(self, mf: ModelFile, key, nbytes: int):
-        """(arrays, segments, write(name, raw)); ``segments`` stays empty
-        until the shm slice of the port."""
-        arrays: Dict[str, np.ndarray] = {}
+    # ------------------------------------------------ CLOUD-tier write-back
+    def _on_host_remove(self, event: str, entry):
+        """Host-cache listener (fires under the host lock — enqueue only).
 
-        def write(name: str, raw: bytes):
-            tm = mf.tensors[name]
-            arrays[name] = np.frombuffer(
-                raw, dtype=_np_dtype(tm.dtype)).reshape(tm.shape)
-        return arrays, [], write
+        A HOST victim whose payload was live is a *demotion to disk*; with
+        ``writeback_to_cloud`` the MRM also publishes it to the CLOUD tier
+        in the background so peers/cold nodes can fetch it without touching
+        this node. Placeholder rollbacks (payload None) are not demotions.
+        """
+        if event == "remove" and entry.payload is not None:
+            with self._wb_lock:
+                if not self._wb_shutdown:
+                    self._wb_queue.put(entry.key)
+
+    def _writeback_worker(self):
+        while True:
+            key = self._wb_queue.get()
+            if key is _WB_SENTINEL:
+                self._wb_queue.task_done()
+                return
+            try:
+                # models are version-keyed and immutable: a key already in
+                # the object store needs no re-upload
+                if self.disk.contains(key) and not self.objectstore.contains(key):
+                    # codec=None means the store's own default
+                    self.objectstore.put_file(key, self.disk.path_for(key),
+                                              codec=self.cloud_codec)
+                    with self._lock:
+                        self.metrics["cloud_writebacks"] += 1
+            except Exception:  # noqa: BLE001 — write-back stays best-effort,
+                with self._lock:  # but failures are no longer invisible
+                    self.metrics["cloud_writeback_errors"] += 1
+            finally:
+                self._wb_queue.task_done()
+
+    def flush_writebacks(self):
+        """Block until every queued CLOUD write-back has been processed."""
+        if self._wb_queue is not None:
+            self._wb_queue.join()
+
+    def shutdown(self, timeout: Optional[float] = 5.0) -> None:
+        """Drain and stop the background write-back worker (idempotent).
+
+        New demotions stop enqueueing immediately; everything already
+        queued is processed, then the worker exits on a sentinel. Safe to
+        call on an MRM that never had write-back enabled."""
+        with self._wb_lock:
+            self._wb_shutdown = True
+            thread, self._wb_thread = self._wb_thread, None
+            if thread is not None:
+                self._wb_queue.put(_WB_SENTINEL)
+        if thread is not None:
+            thread.join(timeout)
+
+    def _shm_views(self, key, specs):
+        """One segment with tensors packed back-to-back. ``specs`` is
+        ``[(name, nbytes, np_dtype, shape)]``; returns (segment, views)
+        where views maps name -> (memoryview slice, ndarray aliasing it).
+        The single packing-layout authority for loads AND demotions — the
+        wire protocol in shm_ipc assumes exactly this sequential layout."""
+        from repro_torch.core.shm_ipc import ShmSegment
+        seg = ShmSegment.create(key, sum(nb for _, nb, _, _ in specs))
+        views = {}
+        off = 0
+        for name, nb, dtype, shape in specs:
+            view = memoryview(seg.buf)[off:off + nb]
+            count = int(np.prod(shape)) if shape else 1
+            views[name] = (view,
+                           np.frombuffer(view, dtype=dtype,
+                                         count=count).reshape(shape))
+            off += nb
+        return seg, views
+
+    def _host_sink(self, mf: ModelFile, key, nbytes: int):
+        """(arrays, segments, write(name, raw)) — shm-backed when configured."""
+        arrays: Dict[str, np.ndarray] = {}
+        segs = []
+        if self.use_shm:
+            seg, views = self._shm_views(
+                key, [(name, tm.nbytes, _np_dtype(tm.dtype), tm.shape)
+                      for name, tm in mf.tensors.items()])
+            segs = [seg]
+
+            def write(name: str, raw: bytes):
+                view, arr = views[name]
+                view[: len(raw)] = raw
+                arrays[name] = arr
+        else:
+            def write(name: str, raw: bytes):
+                tm = mf.tensors[name]
+                arrays[name] = np.frombuffer(
+                    raw, dtype=_np_dtype(tm.dtype)).reshape(tm.shape)
+        return arrays, segs, write
 
     def _disk_stages(self, mf: ModelFile, f, write,
                      fut: Optional[LoadFuture] = None):
@@ -1027,7 +1209,7 @@ class MRM:
         I/O overlaps deserialization overlaps device staging (DESIGN.md §4).
         """
         key, timings = fut.key, fut.timings
-        self._ensure_on_disk(key, timings)
+        self._ensure_on_disk(key, timings, ctx=fut.ctx)
         with self._evict_lock:
             self._demoted_keys.discard(key)  # any demoted copy lapsed
         mf = self.disk.open(key)
@@ -1145,7 +1327,8 @@ class MRM:
 
         Returns the entry STILL PINNED; the caller releases the pin once
         the handle refcount (or device staging) no longer needs it."""
-        self._ensure_on_disk(key, timings)
+        self._ensure_on_disk(key, timings,
+                             ctx=fut.ctx if fut is not None else None)
         with self._evict_lock:
             self._demoted_keys.discard(key)  # any demoted copy lapsed
         mf = self.disk.open(key)
@@ -1215,12 +1398,12 @@ class MRM:
         """Cold -> HOST with per-window readiness (DESIGN.md §9).
 
         Bytes deserialize as they become available instead of after the
-        whole file lands: a demand-reorderable disk reader scatters each
-        window's ranges straight into live host arrays, and window
-        readiness fires in execution order through ``fut.wait_prefix``. A
-        key only the CLOUD tier holds lands on disk first, and only the
-        deserialize leg streams; shard callbacks that feed windows from the
-        wire (``on_shard``) come with the object-store slice of the port.
+        whole file lands: shard callbacks from the wire leg (gather /
+        ObjectStore fetch) scatter verified payloads straight into live
+        host arrays, and a demand-reorderable disk reader covers whatever
+        the wire did not deliver (warm-disk opens, legacy sources, the
+        tail of a partially-streamed fetch). Window readiness fires in
+        execution order through ``fut.wait_prefix``.
 
         Components-filtered loads are private: they bypass the host cache
         (cached entries must always hold the full tensor set) and return a
@@ -1230,14 +1413,24 @@ class MRM:
 
         key, timings = fut.key, fut.timings
         private = fut.components is not None
-        # no incremental wire source yet: land the file first
-        self._ensure_on_disk(key, timings)
-        with self._evict_lock:
-            self._demoted_keys.discard(key)  # any demoted copy lapsed
-        mf = self.disk.open(key)
 
-        entry = None
-        if not private:
+        # size the reservation before bytes move; gather-only sources
+        # (remote hook, size unknown here) defer it to header-parse time
+        est = 0
+        if self.disk.contains(key):
+            est = self.disk.open(key).total_bytes
+        elif self.objectstore is not None and self.objectstore.contains(key):
+            est = int(self.objectstore.nbytes(key))
+        elif not (self.remote_fetch is not None
+                  and _accepts_kwarg(self.remote_fetch, "on_shard")):
+            # no incremental wire source at all: land the file first and
+            # stream only the deserialize leg
+            self._ensure_on_disk(key, timings, ctx=fut.ctx)
+            est = self.disk.open(key).total_bytes
+
+        state = {"entry": None, "adopted": None}
+
+        def reserve(nb):
             # mirrors _load_host's reservation: adoption check + pinned
             # placeholder under one cache lock, so concurrent eviction
             # passes can neither reap the in-flight entry nor double-home
@@ -1245,27 +1438,42 @@ class MRM:
             with self.host.lock:
                 e = self.host.peek(key)
                 if e is not None and e.payload is not None:
-                    # a concurrent demotion re-homed the key: warm hit,
-                    # nothing to stream (plan stays None -> wait_prefix
-                    # releases when the future completes)
                     e.pinned = True
-                    timings.tier_hit = "host"
-                    adopted = e
-                else:
-                    adopted = None
-                    self.tiers.make_room(Tier.HOST, mf.total_bytes)
-                    entry = self.host.insert(key, mf.total_bytes, payload=None)
-                    entry.pinned = True
-            if adopted is not None:
-                return self._finish_entry(fut, self.host, adopted, unpin=True)
+                    state["adopted"] = e
+                    return
+                self.tiers.make_room(Tier.HOST, nb)
+                entry = self.host.insert(key, nb, payload=None)
+                entry.pinned = True
+                state["entry"] = entry
+
+        if not private and est:
+            reserve(est)
+            if state["adopted"] is not None:
+                # a concurrent demotion re-homed the key: warm hit, nothing
+                # to stream (plan stays None -> wait_prefix releases when
+                # the future completes)
+                timings.tier_hit = "host"
+                return self._finish_entry(fut, self.host, state["adopted"],
+                                          unpin=True)
+
+        def on_plan(plan, arrays, meta):
+            fut._set_plan(plan, arrays, meta)
+            if not private and state["entry"] is None \
+                    and state["adopted"] is None:
+                reserve(sum(int(a.nbytes) for a in arrays.values()))
 
         def on_window(w):
             fut.stage = "deserialize"
             fut._mark_window(w.index)
 
-        asm = StreamAssembler(fut._set_plan, on_window, components=fut.components)
+        asm = StreamAssembler(on_plan, on_window, components=fut.components)
         try:
             fut.stage = "disk_read"
+            self._ensure_on_disk(key, timings, on_shard=asm.feed_shard,
+                                 ctx=fut.ctx)
+            with self._evict_lock:
+                self._demoted_keys.discard(key)  # any demoted copy lapsed
+            mf = self.disk.open(key)
             asm.ensure_plan_from_file(mf)
             self._stream_windows_from_disk(mf, asm, fut)
             missing = [w.index for w in fut.plan
@@ -1274,10 +1482,10 @@ class MRM:
                 raise IOError(f"streaming load of {key} left windows "
                               f"{missing} incomplete")
         except BaseException:
-            if entry is not None:
-                with self.host.lock:
-                    if self.host.peek(key) is entry:
-                        self.host.remove(key)
+            with self.host.lock:
+                entry = state["entry"]
+                if entry is not None and self.host.peek(key) is entry:
+                    self.host.remove(key)
             raise
         timings.deserialize_s += asm.scatter_s
         nbytes = sum(int(a.nbytes) for a in asm.arrays.values())
@@ -1291,9 +1499,10 @@ class MRM:
                 self.metrics["partial_loads"] += 1
 
         if private:
-            timings.total_s = time.perf_counter() - fut._t_start
             if not fut.want_handle:
+                timings.total_s = time.perf_counter() - fut._t_start
                 return None
+            timings.total_s = time.perf_counter() - fut._t_start
             h = ModelHandle(next(self._hid), key, dict(asm.arrays), nbytes,
                             timings, fut.granularity, tier="host",
                             private=True)
@@ -1301,13 +1510,19 @@ class MRM:
                 self._handles[h.handle_id] = h
             return h
 
+        adopted = state["adopted"]
+        if adopted is not None:
+            # deferred reservation lost to a concurrent re-homing: the
+            # cached copy wins; our streamed arrays still back fut.arrays
+            return self._finish_entry(fut, self.host, adopted, unpin=True)
+        entry = state["entry"]
         entry.payload = HostModel(asm.arrays, nbytes, [])
         return self._finish_entry(fut, self.host, entry, unpin=True)
 
     def _stream_windows_from_disk(self, mf, asm, fut: LoadFuture) -> None:
-        """Read the windows not yet complete, in plan order, with
-        ``fut.demand(i)`` jumping demanded windows to the queue head (the
-        on-demand MoE-expert path)."""
+        """Read the windows the wire leg did not deliver, in plan order,
+        with ``fut.demand(i)`` jumping demanded windows to the queue head
+        (the on-demand MoE-expert path)."""
         demand_lock = threading.Lock()
         demanded: deque = deque()
         pending = {w.index for w in asm.plan
@@ -1422,18 +1637,29 @@ class MRM:
         Called by the TierHierarchy with NO cache locks held (the copy must
         not stall other tier operations), so host-tier state may change
         during the copy — _demote re-checks residency/room before inserting.
-        Returns None to drop the victim instead. Device tensors come back
-        with ``.cpu()``; bf16 returns to numpy as tagged uint16 bits."""
-        arrays = {n: tensor_to_numpy(a) for n, a in victim.payload.items()}
-        return HostModel(arrays, victim.nbytes, [])
+        Returns None to drop the victim instead. bf16 tensors land as
+        tagged uint16 bits. In shm mode each tensor is copied from the
+        device straight into its view of the segment (one D2H copy, no
+        intermediate host array); otherwise ``.cpu()`` makes the copy."""
+        if not self.use_shm:
+            arrays = {n: tensor_to_numpy(a) for n, a in victim.payload.items()}
+            return HostModel(arrays, victim.nbytes, [])
+        tensors = victim.payload
+        seg, views = self._shm_views(
+            victim.key, [(n, t.numel() * t.element_size(), numpy_dtype(t.dtype),
+                          tuple(t.shape)) for n, t in tensors.items()])
+        arrays = {n: tensor_into_numpy(t, views[n][1]) for n, t in tensors.items()}
+        return HostModel(arrays, victim.nbytes, [seg])
 
     # ----------------------------------------------------------- inspection
     def resolvable(self, key: ModelKey) -> bool:
         """Whether some tier this MRM can reach directly (DISK or CLOUD)
-        holds ``key``."""
+        holds ``key`` — cluster peers are the ClusterNode's business."""
         key = ModelKey(*key)
         return (self.disk.contains(key)
-                or (self.cloud is not None and self.cloud.contains(key)))
+                or (self.cloud is not None and self.cloud.contains(key))
+                or (self.objectstore is not None
+                    and self.objectstore.contains(key)))
 
     def resident(self, key: ModelKey, tier: Tier) -> bool:
         key = ModelKey(*key)

@@ -11,8 +11,8 @@ Format (``.trims`` files)::
 Per-tensor offsets enable **layer-granularity** reads (paper §4.2 sharing
 granularity) and ``np.memmap`` enables zero-copy disk->host mapping.
 ``CloudStore`` here is the legacy throttled-directory remote tier; the
-real CLOUD tier is the content-addressed object store (DESIGN.md §6),
-which a later slice of the port copies.
+real CLOUD tier is the content-addressed ``repro_torch.core.objectstore``
+(DESIGN.md §6), which new code should prefer.
 """
 from __future__ import annotations
 
@@ -28,12 +28,10 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.bf16 import BF16_BITS
+
 MAGIC = b"TRIMS001"
 ALIGN = 64
-# bfloat16 without ml_dtypes: the raw bits as uint16, tagged so that the
-# header keeps the name "bfloat16" and the device put views them as bf16.
-# A file written by either package reads byte-equal in the other.
-BF16_BITS = np.dtype(np.uint16, metadata={"trims": "bfloat16"})
 
 
 @contextmanager

@@ -6,7 +6,7 @@ CPU is used only when a caller asks for it, as the tests do.
 
 bfloat16 has no numpy dtype without ``ml_dtypes`` (which ships with JAX and
 is not a dependency of the port), so the port holds bf16 host arrays as
-``uint16`` bit patterns tagged with ``store.BF16_BITS`` (a ``uint16`` dtype
+``uint16`` bit patterns tagged with ``bf16.BF16_BITS`` (a ``uint16`` dtype
 carrying ``{"trims": "bfloat16"}`` metadata, which numpy keeps through
 views, reshapes and copies). Arrays from the JAX package whose dtype is
 ``ml_dtypes.bfloat16`` are recognised by name and read through the same
@@ -19,7 +19,7 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch.core.store import BF16_BITS
+from repro_torch.bf16 import BF16_BITS
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -74,3 +74,22 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     if c.dtype == torch.bfloat16:
         return c.view(torch.int16).numpy().view(BF16_BITS)
     return c.numpy()
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The host dtype that holds a tensor of ``dtype``: tagged uint16 bits
+    for bf16, numpy's own dtype otherwise."""
+    if dtype == torch.bfloat16:
+        return BF16_BITS
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def tensor_into_numpy(t: torch.Tensor, out: np.ndarray) -> np.ndarray:
+    """Copy ``t`` into the writable host array ``out`` (same shape, dtype
+    ``numpy_dtype(t.dtype)``) with one copy from the tensor's device, and
+    return ``out``. The copy is synchronous."""
+    dst = torch.from_numpy(out.view(np.int16) if t.dtype == torch.bfloat16 else out)
+    if t.dtype == torch.bfloat16:
+        dst = dst.view(torch.bfloat16)
+    dst.copy_(t.detach())
+    return out

@@ -1,17 +1,21 @@
-"""Serving launcher of the PyTorch port: stand up the TrIMS MRM and drive an
-inference engine over the published model store.
+"""Serving launcher of the PyTorch port: stand up the TrIMS MRM (+ optional
+cross-process shm server) and drive an inference engine over the published
+model store.
 
   PYTHONPATH=src python -m repro_torch.launch.serve [--store /path/to/models] \\
-      --arch deepseek-7b --requests 8 [--no-trims] [--device cuda]
+      --arch deepseek-7b --requests 8 [--no-trims] [--device cuda] \\
+      [--shm-socket /tmp/mrm.sock]
 
 The store defaults to ``build/serve_store`` in the checkout, so two
 checkouts never share one.
 
 If the store does not hold the model, a reduced-config model for --arch is
 published first (so the command is self-contained for demos/smoke); a MoE
-arch is published with ``moe_impl="ragged"``, as the JAX launcher does. The
-DENSE and MoE families, in these slices of the port; cross-process sharing
-(``--shm-socket`` in the JAX launcher) comes with a later slice.
+arch is published with ``moe_impl="ragged"``, as the JAX launcher does
+(the DENSE and MoE families). With ``--shm-socket`` the MRM's host tier
+lives in shared memory and other processes open models through
+``core.shm_ipc.RemoteTrimsClient`` on that unix socket while the requests
+run; the server stops when they are done.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ def main(argv=None):
                     choices=["lru", "lcu", "fifo", "largest"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shm-socket", default=None,
+                    help="also expose the MRM to other processes here")
     args = ap.parse_args(argv)
 
     from repro_torch.device import resolve_device
@@ -62,9 +68,27 @@ def main(argv=None):
         publish_model(disk, cfg, init_params(cfg, gen, device=device), name=args.arch)
 
     mrm = None
+    server = None
     if not args.no_trims:
         mrm = MRM(disk, device_capacity=int(args.device_capacity_gb * 2 ** 30),
-                  policy=args.policy, hw=get_hardware(), device=device)
+                  policy=args.policy, hw=get_hardware(), device=device,
+                  use_shm=args.shm_socket is not None)
+        if args.shm_socket:
+            from repro_torch.core.shm_ipc import MRMServer
+            server = MRMServer(mrm, args.shm_socket)
+            print(f"MRM shm server listening on {args.shm_socket}")
+    try:
+        return _drive(args, disk, mrm, device)
+    finally:
+        if server is not None:
+            server.stop()
+            for e in list(mrm.host.entries.values()):
+                if e.payload is not None:
+                    e.payload.release()  # the daemon owns its segments
+
+
+def _drive(args, disk, mrm, device):
+    from repro_torch.serving import InferenceEngine
 
     engine = InferenceEngine(disk, mrm, use_trims=mrm is not None, device=device)
     cfgv = get_config(args.arch).reduced()

@@ -179,11 +179,12 @@ class InferenceEngine:
 
     def _fetchable(self, key: ModelKey) -> bool:
         """Whether the MRM can fetch ``key`` from outside the local disk (the
-        CLOUD tier; the object store and the peer hook come with the
-        cluster slice of the port)."""
+        CLOUD tier's object store or legacy store, or a peer hook)."""
         m = self.mrm
         try:
-            return m.cloud is not None and m.cloud.contains(key)
+            return ((m.objectstore is not None and m.objectstore.contains(key))
+                    or (m.cloud is not None and m.cloud.contains(key))
+                    or m.remote_fetch is not None)
         except Exception:  # noqa: BLE001 — a hint must never fail the worker
             return False
 

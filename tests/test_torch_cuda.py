@@ -267,3 +267,174 @@ def test_moe_streamed_tokens_equal_batch_tokens_on_the_card(cuda_device, tmp_pat
     batched, st2 = eng.generate("m", toks, max_new_tokens=6)
     assert (st2.streamed, st2.tier_hit) == (False, "host")
     np.testing.assert_array_equal(streamed, batched)
+
+
+def _publish_small(cuda_device, disk, names=("m",), n_layers=(3,)):
+    """Small bf16 DENSE models on ``disk``; returns their config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import publish_model
+
+    base = get_config("deepseek-7b").reduced().replace(d_model=256, d_head=64)
+    cfgs = {}
+    for seed, (name, n) in enumerate(zip(names, n_layers)):
+        cfgs[name] = base.replace(n_layers=n)
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        publish_model(disk, cfgs[name], init_params(cfgs[name], gen, device=cuda_device),
+                      name=name)
+    return cfgs
+
+
+@pytest.mark.cuda
+def test_shm_demotion_bytes_equal_the_device_copy_on_the_card(cuda_device, tmp_path,
+                                                              monkeypatch):
+    """shm mode on the card: a device eviction copies A from the card
+    straight into a new segment; its bits equal the device copy's."""
+    import os
+
+    from repro_torch.core import shm_ipc
+    from repro_torch.core.mrm import MRM, ModelKey
+    from repro_torch.core.store import DiskStore
+    from repro_torch.device import tensor_from_numpy
+
+    monkeypatch.setattr(shm_ipc, "SEGMENT_PREFIX", f"trimscuda{os.getpid()}_")
+    disk = DiskStore(str(tmp_path))
+    _publish_small(cuda_device, disk, "ABC", (4, 2, 2))
+    size = {n: disk.open(("repro-torch", n, "1")).total_bytes for n in "ABC"}
+    mrm = MRM(disk, device_capacity=size["A"] + size["B"] // 2,
+              host_capacity=size["A"] + size["B"] + size["B"] // 2, use_shm=True)
+    key = lambda n: ModelKey("repro-torch", n, "1")  # noqa: E731
+    try:
+        mrm.close(mrm.open(key("A")))
+        dev = dict(mrm.device.peek(key("A")).payload)
+        mrm.prefetch(key("B"), tier="host").result(timeout=60)
+        mrm.prefetch(key("C"), tier="host").result(timeout=60)
+        assert mrm.host.peek(key("A")) is None
+        mrm.close(mrm.open(key("B")))
+        assert mrm.tiers.demotions == 1
+        hm = mrm.host.peek(key("A")).payload
+        assert len(hm.shm_segments) == 1
+        for n, t in dev.items():
+            got = tensor_from_numpy(hm.arrays[n], cuda_device)
+            assert got.dtype == t.dtype and got.shape == t.shape, n
+            assert torch.equal(got.view(torch.int16), t.view(torch.int16)), n
+    finally:
+        for e in list(mrm.host.entries.values()):
+            if e.payload is not None:
+                e.payload.release()
+
+
+CUDA_CLIENT = """
+import json, sys
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+from repro_torch.configs import ModelConfig
+from repro_torch.core.shm_ipc import RemoteTrimsClient
+from repro_torch.core.store import DiskStore
+from repro_torch.device import tensor_from_numpy
+from repro_torch.models import model as M
+from repro_torch.serving.weights_io import flat_to_params_like
+
+dev = torch.device("cuda")
+key = ("repro-torch", "m", "1")
+cfg = ModelConfig(**dict(DiskStore({store!r}).open(key).meta["config"]))
+c = RemoteTrimsClient({sock!r})
+h = c.open(*key)
+w = {{n: tensor_from_numpy(a, dev) for n, a in h.arrays.items()}}
+params = flat_to_params_like(M.init_params(cfg, device="meta"), w)
+toks = torch.as_tensor(np.asarray({toks!r}, dtype=np.int32), dtype=torch.long, device=dev)
+S = toks.shape[1]
+logits, cache = M.prefill(cfg, params, {{"tokens": toks}}, max_len=S + 6)
+tok = logits.argmax(-1)
+out = [tok]
+for i in range(5):
+    logits, cache = M.decode_step(cfg, params, cache, tok, S + i)
+    tok = logits.argmax(-1)
+    out.append(tok)
+print(json.dumps({{"tokens": torch.stack(out, 1).cpu().tolist(),
+                  "tier": h.timings["tier_hit"]}}))
+c.close(h)
+c.disconnect()
+"""
+
+
+@pytest.mark.cuda
+def test_subprocess_client_tokens_equal_the_engine_on_the_card(cuda_device, tmp_path,
+                                                               monkeypatch):
+    """A client process attaches the daemon's shm copy, puts it on the card
+    and generates: its tokens equal the daemon's own engine's."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch.core import shm_ipc
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.serving import InferenceEngine
+
+    monkeypatch.setattr(shm_ipc, "SEGMENT_PREFIX", f"trimscuda{os.getpid()}_")
+    disk = DiskStore(str(tmp_path))
+    cfg = _publish_small(cuda_device, disk)["m"]
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    mrm = MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30, use_shm=True)
+    want, st = InferenceEngine(disk, mrm).generate("m", toks, max_new_tokens=6)
+    assert st.tier_hit == "disk"
+    sockdir = tempfile.mkdtemp(prefix="tcu-", dir="/tmp")
+    srv = shm_ipc.MRMServer(mrm, os.path.join(sockdir, "m.sock"))
+    try:
+        src = str(Path(__file__).resolve().parents[1] / "src")
+        script = CUDA_CLIENT.format(src=src, store=str(tmp_path), sock=srv.sock_path,
+                                    toks=toks.tolist())
+        r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                           timeout=300)
+        assert r.returncode == 0, r.stderr[-4000:]
+        got = json.loads(r.stdout.strip().splitlines()[-1])
+        assert got["tier"] == "host"
+        np.testing.assert_array_equal(np.asarray(got["tokens"], np.int32), want)
+        assert mrm.stats()["disk_loads"] == 1
+    finally:
+        srv.stop()
+        for e in list(mrm.host.entries.values()):
+            if e.payload is not None:
+                e.payload.release()
+        os.rmdir(sockdir)
+
+
+@pytest.mark.cuda
+def test_cloud_hit_tokens_on_the_card(cuda_device, tmp_path):
+    """A model only the object store holds: a batch cloud open, then its
+    tokens, and a streamed cloud hit fed by the layer shards, both equal
+    to the tokens served from the source disk."""
+    import numpy as np
+
+    from repro_torch.core.mrm import MRM, ModelKey
+    from repro_torch.core.objectstore import ObjectStore
+    from repro_torch.core.store import DiskStore
+    from repro_torch.serving import InferenceEngine
+
+    src = DiskStore(str(tmp_path / "src"))
+    cfg = _publish_small(cuda_device, src)["m"]
+    key = ModelKey("repro-torch", "m", "1")
+    store = ObjectStore(str(tmp_path / "cloud"))
+    store.put_file(key, src.path_for(key), shard_plan="layers", shard_bytes=1 << 20)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    want, _ = InferenceEngine(src, MRM(src, device_capacity=1 << 30)).generate(
+        "m", toks, max_new_tokens=6)
+    for streaming in (False, True):
+        disk = DiskStore(str(tmp_path / f"cold{streaming}"))
+        mrm = MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30, objectstore=store)
+        if not streaming:
+            h = mrm.open(key)
+            assert h.timings.tier_hit == "cloud"
+            mrm.close(h)
+        got, st = InferenceEngine(disk, mrm, streaming=streaming).generate(
+            "m", toks, max_new_tokens=6)
+        assert st.tier_hit == ("cloud" if streaming else "device")
+        assert st.streamed == streaming and mrm.stats()["cloud_downloads"] == 1
+        np.testing.assert_array_equal(got, want)

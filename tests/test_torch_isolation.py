@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no JAX, no ml_dtypes, nothing of `repro`."""
+"""The PyTorch port stands alone: no JAX, no ml_dtypes, no msgpack (the port
+has its own wire codec), nothing of `repro`."""
 import ast
 import os
 import subprocess
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "msgpack", "repro")
 
 
 def _port_files():
@@ -33,6 +34,8 @@ def test_port_files_exist():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"src/repro_torch/core/layerplan.py", "src/repro_torch/serving/prefix_cache.py",
             "src/repro_torch/models/moe.py"} <= names
+    assert {f"src/repro_torch/core/{m}.py" for m in (
+        "wire", "transport", "shm_ipc", "codec", "objectstore", "faas")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -44,9 +47,11 @@ def test_no_forbidden_imports(path):
 def test_serving_import_leaves_jax_out():
     code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.kernels.ops, repro_torch.core.layerplan, "
-            "repro_torch.serving.prefix_cache, repro_torch.models.moe; "
+            "repro_torch.serving.prefix_cache, repro_torch.models.moe, repro_torch.core, "
+            "repro_torch.core.shm_ipc, repro_torch.core.transport, repro_torch.core.faas, "
+            "repro_torch.core.objectstore; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ml_dtypes', 'repro')]; "
+            "('jax', 'jaxlib', 'ml_dtypes', 'msgpack', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

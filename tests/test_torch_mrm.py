@@ -107,12 +107,20 @@ def test_device_put_round_trips_bf16(store):
     assert tensor_to_numpy(t).tobytes() == bits.tobytes()
 
 
-def test_later_slices_raise(store):
+def test_later_slices_raise(store, tmp_path):
+    """The arguments that earlier slices of the port refused now construct
+    an MRM: shm mode, the CLOUD object store, its write-back and codec."""
+    from repro_torch.core.objectstore import ObjectStore
     root, _ = store
-    for kw in ({"use_shm": True}, {"objectstore": object()}, {"writeback_to_cloud": True},
-               {"cloud_codec": "zlib"}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            MRM(DiskStore(root), device_capacity=1 << 20, device="cpu", **kw)
+    obj = ObjectStore(str(tmp_path / "cloud"))
+    for kw in ({"use_shm": True}, {"objectstore": obj},
+               {"objectstore": obj, "writeback_to_cloud": True}, {"cloud_codec": "zlib"}):
+        mrm = MRM(DiskStore(root), device_capacity=1 << 20, device="cpu", **kw)
+        assert mrm.use_shm == kw.get("use_shm", False)
+        assert mrm.objectstore is kw.get("objectstore")
+        assert (mrm._wb_thread is not None) == kw.get("writeback_to_cloud", False)
+        mrm.shutdown()
+        assert mrm._wb_thread is None
     mrm = MRM(DiskStore(root), device_capacity=1 << 20, hw=costmodel.HardwareModel(),
               device="cpu")
     h = mrm.open_stream(ModelKey("repro-jax", "A", "1")).result(timeout=60)
