@@ -61,8 +61,28 @@ Run from the root of a checkout. Phases, each of which raises on failure
    unentitled one, drops the references at teardown, and a router prefers
    it over a cold platform. Every request's tokens equal phase 3's.
    Printed as ``{"ipc": ...}``, ``{"cloud": ...}`` and ``{"faas": ...}``.
+8. The cluster layer, over phase 3's store and phase 7's object store, model
+   A at full width (each request's launches counted from 0 and held to its
+   path, its tokens equal to phase 3's): four in-process nodes (MRMs on the
+   card) share the object store and a sharded directory. (a) Node a holds
+   A warm in its host tier and b, a peer-only node with an empty disk,
+   pulls it by peer fetch (no download, the same SHA-256 as a's file);
+   (b) A's shards are scattered over a and b (b's whole copy dropped) and a
+   streaming engine on c serves A by a gather (windows ready 0..4, every
+   shard fed before the file is complete); (c) a placement planner on a
+   virtual clock sees a periodic arrival trace of A on d and its
+   preposition, applied with ``tier="device"``, pulls A onto d's card (a
+   peer fetch, then the device copy), so d's next request is a device hit
+   that loads in under 10 ms; (d) two daemon processes
+   (``repro_torch.core.noded``): na serves the directory over phase 3's
+   store, nb joins it with an empty disk and a client socket, pulls A from
+   na over the data-plane socket onto its card, serves a client process
+   (``--ipc-client``) A as a host hit, and both stop on SIGTERM with exit
+   code 0, nb withdrawn from na's directory first and no segment left.
+   Printed as ``{"cluster": ...}``: the measured wall times beside the cost
+   model's modeled ``peer_s``/``gather_s``.
 
-The last lines are the summaries of phases 5, 6 and 7, the first port's
+The last lines are the summaries of phases 5, 6, 7 and 8, the first port's
 attention kernel times (constants, labelled ``first_port_ms``), the kernel
 table as JSON (``launches``: phase 3's counts; ``q_launches``: phase 6's;
 ``q_*``: times at Q's shapes), the card's name and
@@ -1452,6 +1472,298 @@ def faas_phase(torch, store_dir: Path, device, caps, want_tokens):
             "refcount_before_teardown": refs}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the cluster layer (peer fetch, sharded gather, placement, daemons)
+# ---------------------------------------------------------------------------
+
+def _timed(fn, out: list):
+    """``fn`` that appends each call's wall seconds to ``out``."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        out.append(time.perf_counter() - t0)
+        return r
+    return run
+
+
+def file_sha256(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(64 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def cluster_phase(torch, store_dir: Path, build: Path, device, caps, want_tokens):
+    """(a) Peer fetch, (b) a streamed sharded gather and (c) a planner's
+    preposition among four in-process nodes that share phase 7's object
+    store and a sharded directory; then (d) two daemon processes."""
+    import numpy as np
+    from repro_torch.core import mrm as mrm_mod
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.objectstore import ObjectStore
+    from repro_torch.core.placement import PlacementPlanner, PlannerConfig
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceEngine
+
+    cfg = model_config(store_dir)
+    toks, hw, want = prompt(cfg.vocab_size), get_hardware(), path_launches(cfg)
+    key = mrm_mod.ModelKey(*KEY_A)
+    store = ObjectStore(str(build / "cloud"))          # phase 7's: A in layer shards
+    digest = file_sha256(DiskStore(str(store_dir)).path_for(key))
+    if store.stat(key)["digest"] != digest:
+        raise AssertionError("phase 7's object store holds another A")
+    cluster = Cluster(objectstore=store, directory="sharded")
+
+    def node(name, disk_root, gather=True):
+        mrm = mrm_mod.MRM(DiskStore(str(disk_root)), device_capacity=caps[0],
+                          host_capacity=caps[1], hw=hw, device=device)
+        return cluster.add_node(name, mrm, gather=gather)
+
+    def serve(n, label, streaming=False):
+        engine = InferenceEngine(n.mrm.disk, n.mrm, device=device, streaming=streaming)
+        engine._cfg_cache[("A", "1")] = cfg     # a cold node has no local file to read it from
+        ops.reset_launches()
+        out, st = engine.generate("A", toks, NEW)
+        launches = counts(ops)
+        log(json.dumps({"cluster_request": label, **dataclasses.asdict(st)}))
+        if not np.array_equal(out, want_tokens):
+            raise AssertionError(f"phase 8 {label}: tokens differ from phase 3's")
+        if launches != want:
+            raise AssertionError(f"phase 8 {label}: launches {launches}, path implies {want}")
+        return {**dataclasses.asdict(st), "launches": launches}
+
+    # b and d are peer-only: with A in layer shards in the object store, a
+    # gather over a and the cloud would be modeled at least as cheap as the
+    # single peer link, and these two requests are to take the peer leg
+    a, b = node("a", store_dir), node("b", build / "cluster_b", gather=False)
+    c, d = node("c", build / "cluster_c"), node("d", build / "cluster_d", gather=False)
+    out = {"hw": {k: getattr(hw, k) for k in ("peer_bw", "peer_rtt", "disk_bw",
+                                               "ingest_bw", "h2d_bw")}}
+
+    # (a) peer fetch: a holds A warm in its host tier, b pulls it over the
+    # modeled peer link (in this process: a file copy)
+    a.mrm.prefetch(key, tier="host").result()
+    pulls = []
+    b._pull_from_peer = _timed(b._pull_from_peer, pulls)
+    st = serve(b, "peer")
+    if st["tier_hit"] != "peer" or b.mrm.metrics["peer_fetches"] != 1 or len(pulls) != 1:
+        raise AssertionError(f"peer fetch: tier {st['tier_hit']}, "
+                             f"peer_fetches {b.mrm.metrics['peer_fetches']}")
+    if b.mrm.metrics["cloud_downloads"] != 0:
+        raise AssertionError("peer fetch: b downloaded from the object store")
+    if file_sha256(b.mrm.disk.path_for(key)) != digest:
+        raise AssertionError("peer fetch: b's copy of A differs from a's")
+    out["peer"] = {**st, "pull_wall_s": pulls[0],
+                   "modeled_peer_s": b.mrm.metrics["modeled_fetch_s"],
+                   "node_b": b.stats(), "node_a": a.stats()}
+    log(f"peer: pull {pulls[0]:.3f} s wall (modeled {b.mrm.metrics['modeled_fetch_s']:.3f} s), "
+        f"ttft {st['ttft_s']:.3f} s")
+
+    # (b) sharded gather, streamed: A's shards scattered over a and b; b's
+    # whole copy and a's host copy go, so both sources serve from disk
+    if not (b.mrm.drop_model(key, from_disk=True)["disk"] and a.mrm.drop_model(key)["host"]):
+        raise AssertionError("A's copies on b and in a's host tier were not dropped")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    placed = cluster.scatter(key, ["a", "b"])
+    scatter_s = time.perf_counter() - t0
+    plans, order, ready, fed = [], [], [], []
+    plan_sources, gather_run = c.plan_shard_sources, c._gather_run
+    dst = c.mrm.disk.path_for(key)
+
+    def recording_plan(k, st_):
+        p = plan_sources(k, st_)
+        plans.append(p)
+        return p
+
+    def watching_gather(k, st_, timings, on_shard=None, ctx=None):
+        def cb(row, data):
+            fed.append((time.perf_counter(), os.path.exists(dst), row["index"]))
+            on_shard(row, data)
+        return gather_run(k, st_, timings, cb if on_shard is not None else None, ctx=ctx)
+
+    mark = mrm_mod.LoadFuture._mark_window
+
+    def recording_mark(fut, index):
+        if fut.streaming:
+            order.append(index)
+            ready.append(time.perf_counter())
+        mark(fut, index)
+
+    c.plan_shard_sources, c._gather_run = recording_plan, watching_gather
+    mrm_mod.LoadFuture._mark_window = recording_mark
+    t_req = time.perf_counter()
+    try:
+        st = serve(c, "gather", streaming=True)
+    finally:
+        mrm_mod.LoadFuture._mark_window = mark
+        del c.plan_shard_sources, c._gather_run
+    n_shards, n_windows = len(store.shard_table(key)), 1 + cfg.n_layers
+    if (st["tier_hit"], st["streamed"]) != ("gather", True):
+        raise AssertionError(f"gather: tier {st['tier_hit']}, streamed {st['streamed']}")
+    if order != list(range(n_windows)):
+        raise AssertionError(f"gather: windows ready in the order {order}")
+    if len(fed) != n_shards or any(landed for _, landed, _ in fed):
+        raise AssertionError(f"gather: {len(fed)} of {n_shards} shards fed, the file "
+                             f"complete before {sum(x for _, x, _ in fed)} of them")
+    if c.mrm.metrics["gather_fetches"] != 1:
+        raise AssertionError(f"gather: gather_fetches {c.mrm.metrics['gather_fetches']}")
+    rows, modeled_gather_s, _ = plans[-1]
+    out["gather"] = {**st, "scatter_s": scatter_s, "placed": placed,
+                     "sources": [[r["index"], r["source"], r["node"]] for r in rows],
+                     "modeled_gather_s": c.mrm.metrics["modeled_fetch_s"],
+                     "planned_gather_s": modeled_gather_s,
+                     "windows": order, "window_ready_s": [t - t_req for t in ready],
+                     "shard_fed_s": [[i, t - t_req] for t, _, i in fed], "node_c": c.stats()}
+    log(f"gather: sources {[r['node'] or r['source'] for r in rows]}, "
+        f"ttft {st['ttft_s']:.3f} s, windows at {[round(t - t_req, 3) for t in ready]} s")
+
+    # (c) placement: a periodic arrival trace of A on d, on a virtual clock;
+    # the planner's preposition, applied with tier="device", pulls A onto d's
+    # card ahead of the burst
+    planner = PlacementPlanner(cfg=PlannerConfig(bin_s=1.0, min_bursts=3, min_arrivals=4,
+                                                 lead_s=1.0))
+    for i in range(6):
+        planner.observe(key, node="d", now=0.25 + 5.0 * i)
+    futs, prefetch = [], d.mrm.prefetch
+
+    def recording_prefetch(*a_, **kw):
+        futs.append(prefetch(*a_, **kw))
+        return futs[-1]
+
+    d.mrm.prefetch = recording_prefetch
+    t0 = time.perf_counter()
+    applied = planner.apply(cluster, now=29.5, tier="device")
+    if [(x.kind, x.nodes) for x in applied] != [("preposition", ("d",))] or len(futs) != 1:
+        raise AssertionError(f"planner: applied {applied}")
+    futs[0].result()
+    prefetch_s = time.perf_counter() - t0
+    del d.mrm.prefetch
+    if futs[0].timings.tier_hit != "peer" or d.mrm.device.peek(key) is None:
+        raise AssertionError(f"preposition: tier {futs[0].timings.tier_hit}, on the device "
+                             f"{d.mrm.device.peek(key) is not None}")
+    st = serve(d, "prepositioned")
+    if st["tier_hit"] != "device" or st["model_load_s"] >= 0.010:
+        raise AssertionError(f"after the preposition: tier {st['tier_hit']}, "
+                             f"load {st['model_load_s']:.4f} s")
+    x = applied[0]
+    out["planner"] = {"action": {"kind": x.kind, "nodes": list(x.nodes), "at_s": x.at_s,
+                                 "reason": x.reason},
+                      "prefetch_s": prefetch_s, "prefetch_tier_hit": futs[0].timings.tier_hit,
+                      "request": st, "stats": planner.stats()}
+    log(f"planner: {x.kind} -> {x.nodes}, prefetch {prefetch_s:.3f} s "
+        f"({futs[0].timings.tier_hit}), then load {st['model_load_s'] * 1e3:.2f} ms")
+    out["directory"] = cluster.directory.stats()
+    for n in cluster.nodes.values():
+        n.mrm.shutdown()
+    del cluster, a, b, c, d, futs
+    torch.cuda.empty_cache()
+
+    # (d) daemon processes
+    out["daemons"] = daemon_phase(store_dir, build, device, caps, want_tokens, digest, cfg)
+    return out
+
+
+def daemon_phase(store_dir: Path, build: Path, device, caps, want_tokens, digest, cfg):
+    """Two port daemons: na serves the sharded directory over phase 3's
+    store, nb joins it with an empty disk and a client socket. nb pulls A
+    from na over the data-plane socket onto its card, a client process
+    opens A through nb as a host hit and generates, and both daemons stop
+    cleanly on SIGTERM."""
+    import glob
+    import signal
+    import tempfile
+
+    from repro_torch.core.noded import spawn_node
+    from repro_torch.core.transport import SocketTransport
+
+    sockdir = tempfile.mkdtemp(prefix="trims-", dir="/tmp")
+    shm_before = set(glob.glob("/dev/shm/trims_*"))
+    nb_root = build / "cluster_nb"
+    nb_root.mkdir(parents=True, exist_ok=True)
+    procs, errs, out = {}, [], {}
+
+    def spawn(name, **spec):
+        errs.append(open(build / f"{name}.err", "w"))
+        t0 = time.perf_counter()
+        procs[name], info = spawn_node(
+            {"name": name, "listen": f"unix:{sockdir}/{name}.sock", "device": str(device),
+             "device_capacity": caps[0], "host_capacity": caps[1], "call_timeout_s": 300,
+             **spec}, stderr=errs[-1], ready_timeout_s=180)
+        out[name] = {**info, "ready_s": time.perf_counter() - t0}
+        return info["address"]
+
+    def stop(name):
+        t0 = time.perf_counter()
+        procs[name].send_signal(signal.SIGTERM)
+        rc = procs[name].wait(timeout=60)
+        out["shutdown_s"][name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"daemon {name} exited {rc} on SIGTERM")
+
+    try:
+        ta = SocketTransport(spawn("na", disk_root=str(store_dir), directory={
+            "serve": True, "policy": "sharded", "n_shards": 8}), timeout_s=300)
+        tb = SocketTransport(spawn("nb", disk_root=str(nb_root),
+                                   client_sock=f"{sockdir}/nb-client.sock",
+                                   directory={"connect": out["na"]["address"]}), timeout_s=600)
+        t0 = time.perf_counter()
+        r = tb.call({"op": "open", "key": list(KEY_A), "tier": "device", "timeout": 600})
+        pull_s = time.perf_counter() - t0
+        if r["timings"]["tier_hit"] != "peer" or r["disk_digest"] != digest:
+            raise AssertionError(f"daemon pull: tier {r['timings']['tier_hit']}, digest "
+                                 f"{'equal' if r['disk_digest'] == digest else 'differs'}")
+        stats = {n: t.call({"op": "node_stats"}) for n, t in (("na", ta), ("nb", tb))}
+        tb.close()
+        if stats["nb"]["node"]["peer_fetches"] != 1 or stats["na"]["node"]["peer_serves"] != 1:
+            raise AssertionError(f"daemon pull: {stats['nb']['node']}, {stats['na']['node']}")
+        out["pull"] = {"wall_s": pull_s, "timings": r["timings"], "nbytes": r["nbytes"],
+                       "nb": stats["nb"]["node"], "na": stats["na"]["node"],
+                       "calibration": stats["nb"]["calibration"]}
+        log(f"daemons: nb pulled A from na in {pull_s:.3f} s "
+            f"(wire {r['timings']['wire_s']:.3f} s)")
+        res = subprocess.run(_client_cmd(out["nb"]["client_sock"], store_dir, device),
+                             capture_output=True, text=True, timeout=CLIENT_TIMEOUT_S)
+        if res.returncode != 0:
+            raise RuntimeError(f"nb's client exited {res.returncode}:\n{res.stderr[-4000:]}")
+        client = out["client"] = json.loads(res.stdout.strip().splitlines()[-1])
+        if client["tokens_sha1"] != tokens_sha1(want_tokens) or client["tier_hit"] != "host":
+            raise AssertionError(f"nb's client: tier {client['tier_hit']}, tokens "
+                                 f"{client['tokens_sha1']}")
+        if client["launches"] != path_launches(cfg):
+            raise AssertionError(f"nb's client: launches {client['launches']}")
+
+        def members():
+            return ([n for n, _ in ta.call({"op": "dir.holders", "key": list(KEY_A)})["holders"]],
+                    [n for n, _ in ta.call({"op": "dir.nodes"})["nodes"]])
+
+        if any("nb" not in x for x in members()):
+            raise AssertionError(f"na's directory does not list nb: {members()}")
+        out["shutdown_s"] = {}
+        stop("nb")
+        if any("nb" in x for x in members()):
+            raise AssertionError(f"nb is still in na's directory: {members()}")
+        ta.close()
+        stop("na")
+        leaked = set(glob.glob("/dev/shm/trims_*")) - shm_before
+        if leaked:
+            raise AssertionError(f"the daemons left segments behind: {sorted(leaked)}")
+        log(f"daemons: client open {client['open_s']:.3f} s, attach {client['attach_s']:.3f} s, "
+            f"h2d {client['h2d_s']:.3f} s; shutdown {out['shutdown_s']}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for f in errs:
+            f.close()
+        shutil.rmtree(sockdir, ignore_errors=True)
+    return out
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -1514,13 +1826,19 @@ def main() -> int:
     try:
         # full width: d_model 4096, 32 heads of 128, d_ff 11008, vocab 102400
         caps = (3 * GiB, int(4.5 * GiB))
+        t0 = time.perf_counter()
         engine, launches, summary, tokens_a = serve_phase(
             torch, store_dir, get_config("deepseek-7b"), device, caps)
+        log(f"phase 3 passed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         e2e = end_to_end_phase(torch, engine)
+        log(f"phase 4 passed in {time.perf_counter() - t0:.1f} s")
         # 5. stream and prefix
         batch_disk_hit = next(s for s in engine.stats if s.model == "A")
         del engine
+        t0 = time.perf_counter()
         stream = stream_phase(torch, store_dir, device, caps, tokens_a, batch_disk_hit)
+        log(f"phase 5 passed in {time.perf_counter() - t0:.1f} s")
 
         # 6. MoE: qwen3-moe-30b-a3b at full width (d_model 2048, 32 query and 4
         # KV heads of 128, QK-norm, 128 experts top 8 of d_ff 768, vocab
@@ -1529,10 +1847,12 @@ def main() -> int:
         shutil.rmtree(moe_dir, ignore_errors=True)
         try:
             torch.cuda.empty_cache()
+            t0 = time.perf_counter()
             moe_engine, moe = moe_phase(torch, moe_dir, get_config("qwen3-moe-30b-a3b").replace(
                 n_layers=2), device, (8 * GiB, 8 * GiB))
             moe["end_to_end"] = moe_end_to_end(torch, moe_engine, device)
             del moe_engine
+            log(f"phase 6 passed in {time.perf_counter() - t0:.1f} s")
         finally:
             shutil.rmtree(moe_dir, ignore_errors=True)
 
@@ -1543,6 +1863,13 @@ def main() -> int:
         ipc = ipc_phase(torch, store_dir, device, caps, tokens_a)
         faas = faas_phase(torch, store_dir, device, caps, tokens_a)
         log(f"phase 7 passed in {time.perf_counter() - t0:.1f} s")
+
+        # 8. the cluster layer, over phase 3's store and phase 7's object store
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cluster = cluster_phase(torch, store_dir, cloud_dir, device, caps, tokens_a)
+        cluster["phase_s"] = time.perf_counter() - t0
+        log(f"phase 8 passed in {cluster['phase_s']:.1f} s")
     finally:
         for d in (store_dir, cloud_dir):
             shutil.rmtree(d, ignore_errors=True)
@@ -1567,12 +1894,14 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
              "stream": stream, "moe": moe, "cloud": cloud, "ipc": ipc, "faas": faas,
+             "cluster": cluster,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"ipc": ipc}))
     print(json.dumps({"cloud": cloud}))
     print(json.dumps({"faas": faas}))
+    print(json.dumps({"cluster": cluster}))
     print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)

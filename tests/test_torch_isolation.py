@@ -36,6 +36,30 @@ def test_port_files_exist():
             "src/repro_torch/models/moe.py"} <= names
     assert {f"src/repro_torch/core/{m}.py" for m in (
         "wire", "transport", "shm_ipc", "codec", "objectstore", "faas")} <= names
+    assert {f"src/repro_torch/core/{m}.py" for m in (
+        "directory", "cluster", "placement", "noded", "fleetsim")} <= names
+
+
+def _exported(path: Path):
+    """Names a package ``__init__`` re-exports, by the module each comes from."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {a.asname or a.name: node.module for node in tree.body
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+def test_core_exports_match_reference():
+    """The port's ``core`` exports every name the JAX package's ``core``
+    does (read from both files' ASTs, so neither package is imported),
+    apart from the proxy zoo's, which the port does not have yet; neither
+    re-exports ``noded``, the daemon's ``python -m`` entry point."""
+    ref = _exported(ROOT / "src" / "repro" / "core" / "__init__.py")
+    port = _exported(ROOT / "src" / "repro_torch" / "core" / "__init__.py")
+    want = {n for n, mod in ref.items() if mod != "repro.core.proxyzoo"}
+    assert want - set(port) == set()
+    assert {"Cluster", "ClusterNode", "HashRing", "PlacementPlanner",
+            "FleetSim"} <= set(port)
+    for exported in (ref, port):
+        assert not any(mod.endswith(".noded") for mod in exported.values())
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -49,7 +73,9 @@ def test_serving_import_leaves_jax_out():
             "repro_torch.kernels.ops, repro_torch.core.layerplan, "
             "repro_torch.serving.prefix_cache, repro_torch.models.moe, repro_torch.core, "
             "repro_torch.core.shm_ipc, repro_torch.core.transport, repro_torch.core.faas, "
-            "repro_torch.core.objectstore; "
+            "repro_torch.core.objectstore, repro_torch.core.cluster, "
+            "repro_torch.core.directory, repro_torch.core.placement, "
+            "repro_torch.core.noded, repro_torch.core.fleetsim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'msgpack', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -71,3 +97,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
         MRM(disk, device_capacity=1 << 20)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(disk, None)
+    from repro_torch.core.noded import NodeDaemon
+    spec = {"name": "n", "disk_root": str(tmp_path / "n"),
+            "listen": f"unix:{tmp_path}/n.sock"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NodeDaemon(spec)
+    NodeDaemon({**spec, "device": "cpu"}).shutdown()
