@@ -10,7 +10,7 @@ Run from the root of a checkout. Phases, each of which raises on failure
    library from ``src/repro_torch/csrc``.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the serving path's shapes (bf16 and fp32; model A's and
-   model Q's, phase 6), at GQA shapes,
+   model Q's, phase 6, and those of phase 9's families), at GQA shapes,
    ragged lengths, the edges of the attention kernels' tiles and KV splits
    and of RMSNorm's launch plan; then CUDA-event timings of the kernel, its
    plain version and one PyTorch library call as a yardstick (the port
@@ -81,12 +81,33 @@ Run from the root of a checkout. Phases, each of which raises on failure
    code 0, nb withdrawn from na's directory first and no segment left.
    Printed as ``{"cluster": ...}``: the measured wall times beside the cost
    model's modeled ``peer_s``/``gather_s``.
+9. The SSM, HYBRID, VLM and ENCDEC families, in a store of their own
+   (``build/smoke_store_fam``, removed at the end), random weights from a
+   seed, each request's launches counted from 0 and held to its path:
+   M = mamba2-370m at full width and depth (48 layers, bf16) served by a
+   batch engine from disk and device, then by a fresh MRM with a streaming,
+   prefix-caching engine (a disk hit on the batch path with no stream
+   opened; a host hit after J's preposition took M's place on the card;
+   a device hit; the last two prefix hits that leave the stored SSM and
+   conv states equal to their clones), all five requests' tokens equal;
+   V = llama-3.2-vision-90b at full width, one period (4 self layers, 1
+   gated cross layer, its 1601-token frontend), E = seamless-m4t-large-v2
+   at full width and depth, and J = jamba-1.5-large-398b ``reduced()`` in
+   float32, each from disk and device with equal tokens (J's equal to the
+   CPU plain path's); float32
+   prefill logits of M, V (gates 0.5, a random frontend) and E on the card
+   within 1% of max |logit| of the CPU plain path's; and two of jamba's
+   sublayers at full width (Mamba-2 and attention without RoPE, each with a
+   dense FFN), a prefill and 4 decode steps, within 1% of the CPU's.
+   Printed as ``{"families": ...}``.
 
-The last lines are the summaries of phases 5, 6, 7 and 8, the first port's
-attention kernel times (constants, labelled ``first_port_ms``), the kernel
-table as JSON (``launches``: phase 3's counts; ``q_launches``: phase 6's;
-``q_*``: times at Q's shapes), the card's name and
-power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}``.
+The last lines are the summaries of phases 5, 6, 7, 8 and 9, the first
+port's attention kernel times (constants, labelled ``first_port_ms``), the
+kernel table as JSON (``launches``: phase 3's counts; ``q_launches``: phase
+6's; ``m_``/``v_``/``e_``/``j_launches``: phase 9's for each model; ``q_*``:
+times at Q's shapes; ``family_shapes``: times at phase 9's shapes), the
+card's name and power limit as ``nvidia-smi`` prints them, and
+``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -118,6 +139,12 @@ FIRST_PORT_MS = {"flash_attention": 0.5458000183105469, "decode_attention": 0.15
 
 B, PROMPT, NEW = 2, 512, 16          # one request: batch 2, 512-token prompt, 16 new tokens
 GiB = 2 ** 30
+# the shapes phase 9's families give the kernels: attention (Hq, Hkv, D) of
+# jamba and the llama-vision self layers, and of the seamless decoder, over
+# a (B, PROMPT) prompt and a (B, PROMPT + NEW) cache; RMSNorm rows of
+# mamba2-370m's d_model and of jamba's and llama-vision's
+FAMILY_HEADS = ((64, 8, 128), (16, 16, 64))
+FAMILY_RMSNORM = ((B, PROMPT, 1024), (B, 1, 1024), (B, PROMPT, 8192), (B, 1, 8192))
 
 
 def log(msg: str) -> None:
@@ -228,13 +255,16 @@ def kernel_phase(torch, F):
 
     errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
     q_errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}   # model Q's shapes
+    fam_errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}  # phase 9's
     for dtype in (torch.bfloat16, torch.float32):
         # flash: slice prefill (MHA), GQA (mistral-nemo heads; Q's group 8), ragged S/T
         for (b, s, t, hq, hkv, d, causal) in ((B, PROMPT, PROMPT, 32, 32, 128, True),
                                               (B, PROMPT, PROMPT, 32, 8, 128, True),
                                               (B, PROMPT, PROMPT, 32, 4, 128, True),
                                               (1, 200, 200, 32, 8, 128, True),
-                                              (2, 130, 70, 32, 8, 128, False)):
+                                              (2, 130, 70, 32, 8, 128, False),
+                                              *((B, PROMPT, PROMPT, *h, True)
+                                                for h in FAMILY_HEADS)):
             q, k, v = rnd(b, s, hq, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype), \
                 rnd(b, t, hkv, d, dtype=dtype)
             e = check_close(torch, "flash", kf.flash_attention(q, k, v, causal=causal),
@@ -244,13 +274,17 @@ def kernel_phase(torch, F):
                 errs["flash_attention"].append(e)
             if (s, hkv, dtype) == (PROMPT, 4, torch.bfloat16):
                 q_errs["flash_attention"].append(e)
+            if (hq, hkv, d) in FAMILY_HEADS and dtype == torch.bfloat16:
+                fam_errs["flash_attention"].append(e)
         # decode: slice cache (2, 528, 32, 128), GQA (Q's group 8), ragged T,
         # kv_len 0 -> zeros
         T = PROMPT + NEW
         for (b, t, hq, hkv, d, lens) in ((B, T, 32, 32, 128, (T - 1, PROMPT + 1)),
                                          (B, T, 32, 8, 128, (T, 1)),
                                          (B, T, 32, 4, 128, (T - 1, PROMPT + 1)),
-                                         (3, 300, 32, 8, 128, (0, 299, 300))):
+                                         (3, 300, 32, 8, 128, (0, 299, 300)),
+                                         *((B, T, *h, (T - 1, PROMPT + 1))
+                                           for h in FAMILY_HEADS)):
             q = rnd(b, hq, d, dtype=dtype)
             kc, vc = rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
             kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -261,6 +295,8 @@ def kernel_phase(torch, F):
                 errs["decode_attention"].append(e)
             if (hkv, dtype) == (4, torch.bfloat16):
                 q_errs["decode_attention"].append(e)
+            if (hq, hkv, d) in FAMILY_HEADS and dtype == torch.bfloat16:
+                fam_errs["decode_attention"].append(e)
         edge_cases(torch, kd, kf, rnd, dtype, dev)
         # rmsnorm: prefill and decode rows of d_model (A's 4096, Q's 2048),
         # Q's QK-norm rows over 32 query and 4 KV heads, a ragged shape
@@ -268,7 +304,8 @@ def kernel_phase(torch, F):
                            ((B, 7, 32, 128), 1e-6), ((17, 96), 1e-5),
                            ((B, PROMPT, 2048), 1e-5), ((B, 1, 2048), 1e-5),
                            ((B, PROMPT, 32, 128), 1e-6), ((B, PROMPT, 4, 128), 1e-6),
-                           ((B, 1, 32, 128), 1e-6), ((B, 1, 4, 128), 1e-6)):
+                           ((B, 1, 32, 128), 1e-6), ((B, 1, 4, 128), 1e-6),
+                           *((shape, 1e-5) for shape in FAMILY_RMSNORM)):
             x, sc = rnd(*shape, dtype=dtype), rnd(shape[-1], dtype=dtype) + 1
             e = check_close(torch, "rmsnorm", kr.rmsnorm(x, sc, eps),
                             kr.rmsnorm_plain(x, sc, eps), dtype, (shape, eps))
@@ -276,6 +313,8 @@ def kernel_phase(torch, F):
                 errs["rmsnorm"].append(e)
             if dtype == torch.bfloat16 and shape[-1] in (2048, 128) and shape[0] == B:
                 q_errs["rmsnorm"].append(e)
+            if dtype == torch.bfloat16 and shape in FAMILY_RMSNORM:
+                fam_errs["rmsnorm"].append(e)
         # the final norm reads the last position, x[:, -1:], a row-strided view
         x, sc = rnd(B, PROMPT, 4096, dtype=dtype)[:, -1:], rnd(4096, dtype=dtype) + 1
         check_close(torch, "rmsnorm", kr.rmsnorm(x, sc), kr.rmsnorm_plain(x, sc), dtype,
@@ -348,9 +387,11 @@ def kernel_phase(torch, F):
         r = rmsnorm_times(torch, F, kr, rnd, (B, rows, 4096), 1e-5)
         out["rmsnorm"].update({pre + x: y for x, y in r.items()})
     q_timings(torch, F, kf, kd, kr, rnd, out)
+    family_timings(torch, F, kf, kd, kr, rnd, out)
     for name, e in errs.items():
         out[name]["max_abs_err"] = max(e)
         out[name]["q_max_abs_err"] = max(q_errs[name])
+        out[name]["family_max_abs_err"] = max(fam_errs[name])
     return out
 
 
@@ -375,20 +416,19 @@ def rmsnorm_times(torch, F, kr, rnd, shape, eps):
     return r
 
 
-def q_timings(torch, F, kf, kd, kr, rnd, out):
-    """Each kernel at model Q's shapes (qwen3-moe-30b-a3b: 32 query heads
-    over 4 KV heads of 128, d_model 2048, QK-norm), bf16, as ``q_*`` keys
-    of its row: flash over (2, 512) with group 8, decode over a (2, 528)
-    cache at kv_len 527, RMSNorm over d_model rows and QK-norm rows, at
-    prefill and decode. The library calls are SDPA with ``enable_gqa`` and
-    ``F.rms_norm``."""
-    bf, dev = torch.bfloat16, torch.device("cuda")
-    q, k, v = rnd(B, PROMPT, 32, 128, dtype=bf), rnd(B, PROMPT, 4, 128, dtype=bf), \
-        rnd(B, PROMPT, 4, 128, dtype=bf)
+def flash_times(torch, F, kf, rnd, hq, hkv, d):
+    """Flash attention's times over a (B, PROMPT) prompt with ``hq`` query
+    and ``hkv`` KV heads of ``d``, bf16, causal: kernel warm, cold and per
+    call, its plain version, SDPA (``enable_gqa``) warm and cold, the bound."""
+    bf = torch.bfloat16
+
+    def make():
+        return rnd(B, PROMPT, hq, d, dtype=bf), rnd(B, PROMPT, hkv, d, dtype=bf), \
+            rnd(B, PROMPT, hkv, d, dtype=bf)
+
+    q, k, v = make()
     nbytes = (2 * q.numel() + 2 * k.numel()) * 2
-    sets = cold_copies(torch, lambda: (rnd(B, PROMPT, 32, 128, dtype=bf),
-                                       rnd(B, PROMPT, 4, 128, dtype=bf),
-                                       rnd(B, PROMPT, 4, 128, dtype=bf)), nbytes)
+    sets = cold_copies(torch, make, nbytes)
 
     def sdpa(a):
         return F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in a),
@@ -401,19 +441,26 @@ def q_timings(torch, F, kf, kd, kr, rnd, out):
          "plain_ms": time_ms(torch, lambda: kf.flash_attention_plain(q, k, v, causal=True)),
          "library_ms": time_ms(torch, lambda: sdpa((q, k, v))),
          "cold_library_ms": time_ms(torch, [lambda a=a: sdpa(a) for a in sets]),
-         "cold_copies": len(sets), "shape": [B, PROMPT, 32, 4, 128]}
-    r["bound_ms"], r["bound_by"] = bound(nbytes, 4 * 128 * B * 32 * PROMPT * (PROMPT + 1) / 2)
-    out["flash_attention"].update({"q_" + x: y for x, y in r.items()})
-    del sets
+         "cold_copies": len(sets), "shape": [B, PROMPT, hq, hkv, d]}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, 4 * d * B * hq * PROMPT * (PROMPT + 1) / 2)
+    return r
 
+
+def decode_times(torch, F, kd, rnd, hq, hkv, d):
+    """Decode attention's times against a (B, PROMPT + NEW) cache at the last
+    step's kv_len, bf16, as :func:`flash_times` (SDPA with a length mask
+    and ``enable_gqa``), and the kernel's KV split count."""
+    bf, dev = torch.bfloat16, torch.device("cuda")
     T = PROMPT + NEW
     L = T - 1
     kv_len = torch.full((B,), L, dtype=torch.int32, device=dev)
     mask = (torch.arange(T, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
-    qd, kc, vc = rnd(B, 32, 128, dtype=bf), rnd(B, T, 4, 128, dtype=bf), \
-        rnd(B, T, 4, 128, dtype=bf)
-    sets = cold_copies(torch, lambda: (rnd(B, 32, 128, dtype=bf), rnd(B, T, 4, 128, dtype=bf),
-                                       rnd(B, T, 4, 128, dtype=bf)), 2 * kc.numel() * 2)
+
+    def make():
+        return rnd(B, hq, d, dtype=bf), rnd(B, T, hkv, d, dtype=bf), rnd(B, T, hkv, d, dtype=bf)
+
+    qd, kc, vc = make()
+    sets = cold_copies(torch, make, 2 * kc.numel() * 2)
 
     def sdpa_decode(a):
         return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
@@ -427,14 +474,24 @@ def q_timings(torch, F, kf, kd, kr, rnd, out):
          "plain_ms": time_ms(torch, lambda: kd.decode_attention_plain(qd, kc, vc, kv_len)),
          "library_ms": time_ms(torch, lambda: sdpa_decode((qd, kc, vc))),
          "cold_library_ms": time_ms(torch, [lambda a=a: sdpa_decode(a) for a in sets]),
-         "cold_copies": len(sets), "shape": [B, T, 32, 4, 128], "kv_len": L,
-         "n_split": kd.plan_splits(T, B, 4, torch.cuda.get_device_properties(0)
-                                   .multi_processor_count, 8)[0]}
-    r["bound_ms"], r["bound_by"] = bound(2 * qd.numel() * 2 + 2 * B * L * 4 * 128 * 2 + B * 4,
-                                         4 * B * 32 * L * 128)
-    out["decode_attention"].update({"q_" + x: y for x, y in r.items()})
-    del sets
+         "cold_copies": len(sets), "shape": [B, T, hq, hkv, d], "kv_len": L,
+         "n_split": kd.plan_splits(T, B, hkv, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count, hq // hkv)[0]}
+    r["bound_ms"], r["bound_by"] = bound(2 * qd.numel() * 2 + 2 * B * L * hkv * d * 2 + B * 4,
+                                         4 * B * hq * L * d)
+    return r
 
+
+def q_timings(torch, F, kf, kd, kr, rnd, out):
+    """Each kernel at model Q's shapes (qwen3-moe-30b-a3b: 32 query heads
+    over 4 KV heads of 128, d_model 2048, QK-norm), bf16, as ``q_*`` keys
+    of its row: flash over (2, 512) with group 8, decode over a (2, 528)
+    cache at kv_len 527, RMSNorm over d_model rows and QK-norm rows, at
+    prefill and decode. The library calls are SDPA with ``enable_gqa`` and
+    ``F.rms_norm``."""
+    for name, r in (("flash_attention", flash_times(torch, F, kf, rnd, 32, 4, 128)),
+                    ("decode_attention", decode_times(torch, F, kd, rnd, 32, 4, 128))):
+        out[name].update({"q_" + x: y for x, y in r.items()})
     for pre, shape, eps in (("q_", (B, PROMPT, 2048), 1e-5),
                             ("q_decode_rows_", (B, 1, 2048), 1e-5),
                             ("q_head_rows_", (B, PROMPT, 32, 128), 1e-6),
@@ -442,6 +499,20 @@ def q_timings(torch, F, kf, kd, kr, rnd, out):
         r = rmsnorm_times(torch, F, kr, rnd, shape, eps)
         out["rmsnorm"].update({pre + x: y for x, y in r.items()})
         out["rmsnorm"][pre + "shape"] = list(shape)
+
+
+def family_timings(torch, F, kf, kd, kr, rnd, out):
+    """Each kernel at the shapes phase 9's families give it (FAMILY_HEADS,
+    FAMILY_RMSNORM), bf16, as a ``family_shapes`` list in its row, each
+    entry with its ``shape`` and the keys of :func:`flash_times`,
+    :func:`decode_times` or :func:`rmsnorm_times`."""
+    out["flash_attention"]["family_shapes"] = [flash_times(torch, F, kf, rnd, *h)
+                                               for h in FAMILY_HEADS]
+    out["decode_attention"]["family_shapes"] = [decode_times(torch, F, kd, rnd, *h)
+                                                for h in FAMILY_HEADS]
+    out["rmsnorm"]["family_shapes"] = [
+        {**rmsnorm_times(torch, F, kr, rnd, shape, 1e-5), "shape": list(shape)}
+        for shape in FAMILY_RMSNORM]
 
 
 def rmsnorm_edges(torch, kr, rnd, dtype):
@@ -532,15 +603,31 @@ def counts(ops) -> dict:
 
 
 def path_launches(cfg, prefill: bool = True) -> dict:
-    """Launches one request of batch 2 implies: flash once per layer,
-    decode once per layer and decode step, rmsnorm twice per layer (four
-    with QK-norm: the query and key head norms) plus the final norm for
-    every position that gives a token; a prefix hit runs no prefill."""
+    """Launches one request of batch 2 implies: flash once per causal
+    self-attention layer, decode once per such layer and decode step, and
+    rmsnorm once per RMSNorm of a pass (two a layer or sublayer, one for a
+    Mamba-2 layer without an FFN, two more with QK-norm: the query and key
+    head norms; none in a layernorm model) plus the final norm, for every
+    pass that gives a token; a prefix hit runs no prefill."""
     steps = NEW if prefill else NEW - 1
-    norms = 4 if cfg.qk_norm else 2
-    return {"flash_attention": cfg.n_layers if prefill else 0,
-            "decode_attention": cfg.n_layers * (NEW - 1),
-            "rmsnorm": (norms * cfg.n_layers + 1) * steps}
+    fam = cfg.family
+    if fam == "ssm":
+        n_attn = 0
+    elif fam == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every
+    elif fam == "vlm":
+        n_attn = cfg.n_layers // cfg.cross_attn_every * (cfg.cross_attn_every - 1)
+    elif fam == "encdec":
+        n_attn = cfg.n_dec_layers
+    else:
+        n_attn = cfg.n_layers
+    norms = 0
+    if cfg.norm_type == "rmsnorm":
+        norms = (cfg.n_layers if fam == "ssm" else 2 * cfg.n_layers) + 1 \
+            + (2 * n_attn if cfg.qk_norm else 0)
+    return {"flash_attention": n_attn if prefill else 0,
+            "decode_attention": n_attn * (NEW - 1),
+            "rmsnorm": norms * steps}
 
 
 def serve_phase(torch, store_dir: Path, base, device, caps):
@@ -1764,6 +1851,237 @@ def daemon_phase(store_dir: Path, build: Path, device, caps, want_tokens, digest
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the SSM, HYBRID, VLM and ENCDEC families
+# ---------------------------------------------------------------------------
+
+E2E_PROMPT, E2E_CTX = 64, 128      # phase 9's CPU passes: prompt, ENCDEC source frames
+
+
+def families_phase(torch, store_dir: Path, device):
+    """Models M (mamba2-370m, full width and depth), V (llama-3.2-vision-90b
+    at full width, one period of 4 self and 1 gated cross layer), E
+    (seamless-m4t-large-v2, full width and depth) and J (jamba-1.5-large-398b
+    ``reduced()``, one period, float32) in a store of their own, served by
+    the engine with each request's launches counted from 0 and held to its
+    path. M: a batch engine's disk and device hits, then a fresh MRM with a
+    streaming, prefix-caching engine: a disk hit that takes the batch path
+    (no stream opened), a host hit after J's preposition took M's place on
+    the card, and a device hit, both prefix hits that leave the stored SSM
+    and conv states unchanged; all five requests' tokens equal. J, V and E: disk and device
+    hits with equal tokens, J's equal to the CPU plain path's in float32.
+    Then float32 prefill logits of M, V and E on the card against the CPU
+    plain path, and jamba's sublayers at full width (:func:`jamba_sublayers`).
+    Returns (summary, launches by model)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import mrm as mrm_mod
+    from repro_torch.core.cache import Tier
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceEngine
+
+    cfgs = {"M": get_config("mamba2-370m"),
+            "V": get_config("llama-3.2-vision-90b").replace(n_layers=5),
+            "E": get_config("seamless-m4t-large-v2"),
+            "J": get_config("jamba-1.5-large-398b").reduced().replace(
+                param_dtype="float32", compute_dtype="float32")}
+    disk = DiskStore(str(store_dir))
+    t0 = time.perf_counter()
+    sizes = {n: publish(torch, disk, c, n, 10 + i, device) for i, (n, c) in enumerate(cfgs.items())}
+    log(f"published {json.dumps(sizes)} bytes in {time.perf_counter() - t0:.1f} s")
+    hw = get_hardware()
+    key = lambda n: mrm_mod.ModelKey("repro-torch", n, "1")  # noqa: E731
+    requests = {n: [] for n in cfgs}
+    tokens = {n: [] for n in cfgs}
+
+    def gen(engine, name, label, tier, prefill=True):
+        cfg = cfgs[name]
+        ops.reset_launches()
+        out, st = engine.generate(name, prompt(cfg.vocab_size), NEW)
+        launches = counts(ops)
+        r = {"label": label, **dataclasses.asdict(st), "launches": launches,
+             "tokens_sha1": tokens_sha1(out)}
+        requests[name].append(r)
+        log(json.dumps({"family_request": name, **r}))
+        if out.shape != (B, NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{name} {label}: bad tokens {out.shape} {out.min()}..{out.max()}")
+        if tokens[name] and not np.array_equal(out, tokens[name][0]):
+            raise AssertionError(f"{name} {label}: tokens differ from the first request's")
+        tokens[name].append(out)
+        if (st.tier_hit, st.streamed) != (tier, False):
+            raise AssertionError(f"{name} {label}: tier {st.tier_hit}, streamed {st.streamed}")
+        want = path_launches(cfg, prefill)
+        if launches != want:
+            raise AssertionError(f"{name} {label}: launches {launches}, path implies {want}")
+
+    batch = InferenceEngine(disk, mrm_mod.MRM(disk, device_capacity=24 * GiB,
+                                              host_capacity=24 * GiB, hw=hw, device=device),
+                            device=device)
+    # (a) M: batch disk and device hits, then a fresh MRM and a streaming,
+    # prefix-caching engine whose device tier holds M or J but not both
+    gen(batch, "M", "batch disk", "disk")
+    gen(batch, "M", "batch device", "device")
+    both = sorted((sizes["M"], sizes["J"]))
+    mrm = mrm_mod.MRM(disk, device_capacity=both[1] + both[0] // 2,
+                      host_capacity=4 * GiB, hw=hw, device=device)
+    eng = InferenceEngine(disk, mrm, device=device, streaming=True,
+                          prefix_cache_bytes=256 * 2 ** 20)
+    gen(eng, "M", "streaming engine, disk", "disk")
+    if mrm.stats()["stream_opens"] != 0:
+        raise AssertionError(f"M opened a stream: {mrm.stats()['stream_opens']}")
+    mrm.prefetch(key("J"), tier="device").result()
+    if mrm.resident(key("M"), Tier.DEVICE) or not mrm.resident(key("M"), Tier.HOST):
+        raise AssertionError("J's preposition did not leave M in the host tier only")
+    pkv = eng.prefix_kv
+    (stored,) = [e.payload[1] for e in pkv.tier.entries.values()]
+    before = {n: stored["mamba"][n].clone() for n in ("ssm", "conv")}
+    gen(eng, "M", "streaming engine, host, prefix hit", "host", prefill=False)
+    gen(eng, "M", "streaming engine, device, prefix hit", "device", prefill=False)
+    if (pkv.misses, pkv.hits) != (1, 2):
+        raise AssertionError(f"M's prefix store: {pkv.stats()}")
+    for n, t in before.items():
+        if not torch.equal(stored["mamba"][n], t):
+            raise AssertionError(f"M's prefix hits wrote into the stored {n} state")
+    m_stream_opens = mrm.stats()["stream_opens"]
+    del eng, mrm, stored, before
+
+    # (b)-(d) J, V and E through the batch engine
+    for name in ("J", "V", "E"):
+        gen(batch, name, "batch disk", "disk")
+        gen(batch, name, "batch device", "device")
+    cpu_j = greedy(torch, cfgs["J"], disk.open(key("J")).read_all(),
+                   prompt(cfgs["J"].vocab_size), "cpu")
+    if not np.array_equal(cpu_j, tokens["J"][0]):
+        raise AssertionError("J's tokens on the card differ from the CPU plain path's")
+    del batch
+    torch.cuda.empty_cache()
+
+    out = {"sizes": sizes, "m_stream_opens": m_stream_opens,
+           "requests": requests, "j_cpu_tokens_equal": True, "end_to_end": {}}
+    for name, S, ctx in (("M", PROMPT, None), ("V", E2E_PROMPT, None), ("E", E2E_PROMPT, E2E_CTX)):
+        out["end_to_end"][name] = family_end_to_end(torch, disk, name, cfgs[name], device, S, ctx)
+    out["jamba_sublayers"] = jamba_sublayers(torch, device)
+    launches = {n: {k: sum(r["launches"][k] for r in rs) for k in rs[0]["launches"]}
+                for n, rs in requests.items()}
+    log(f"families: launches {json.dumps(launches)}")
+    return out, launches
+
+
+def family_end_to_end(torch, disk, name, cfg, device, S, ctx=None):
+    """``name``'s prefill logits over the first ``S`` prompt tokens in
+    float32 (weights upcast from the published bf16 file), on the card
+    against the CPU plain path. The VLM's gates are set to 0.5 and the
+    VLM and ENCDEC models get a random frontend (``cfg.n_frontend_tokens``
+    or ``ctx`` frames), so that the cross path counts. Tolerance: 1% of
+    max |logit|, as phase 6 holds Q; the two devices sum in other orders."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import to_torch_tree
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    flat = disk.open(("repro-torch", name, "1")).read_all()
+    batch = {"tokens": torch.from_numpy(prompt(cfg.vocab_size)[:, :S]).long()}
+    if cfg.family in ("vlm", "encdec"):
+        g = torch.Generator().manual_seed(17)
+        batch["frontend"] = torch.randn(B, cfg.n_frontend_tokens or ctx, cfg.d_model,
+                                        generator=g)
+
+    def run(dev):
+        params = _map(to_torch_tree(flat, dev, template=M.init_params(cfg32, device="meta")),
+                      lambda t: t.float())
+        if cfg.family == "vlm":
+            for gate in ("gate_attn", "gate_mlp"):
+                params["blocks"]["cross"][gate].fill_(0.5)
+        t0 = time.perf_counter()
+        logits, _ = M.prefill(cfg32, params, {n: t.to(dev) for n, t in batch.items()}, S)
+        logits = logits[:, :cfg.vocab_size].float().cpu()      # not the masked pad
+        return logits, time.perf_counter() - t0
+
+    got, card_s = run(device)
+    torch.cuda.empty_cache()
+    want, cpu_s = run("cpu")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or got.shape != want.shape or err > 0.01 * scale:
+        raise AssertionError(f"{name} end to end, float32: max abs err {err:.4g} "
+                             f"vs 1% of {scale:.4g}")
+    r = {"prompt": S, "frontend": list(batch["frontend"].shape) if "frontend" in batch else None,
+         "max_abs_err_f32": err, "max_abs_logit": scale,
+         "argmax_agreement_f32": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+         "card_pass_s": card_s, "cpu_pass_s": cpu_s}
+    log(f"{name} end to end: {json.dumps(r)}")
+    return r
+
+
+def jamba_sublayers(torch, device):
+    """Jamba's sublayers at full width (d_model 8192; d_inner 16384, 256 SSM
+    heads of 64, d_state 128; 64 query over 8 KV heads of 128, no RoPE) in
+    float32: sublayer 0 (Mamba-2 and its dense FFN) and sublayer 7 (attention
+    without RoPE, its 16-expert MoE replaced by a dense FFN of the same
+    d_ff: the MoE holds 9.7 B parameters, and phase 6 runs full-width MoE),
+    weights random on the card. A (B, PROMPT) prefill and 4 decode steps,
+    each sublayer's contribution ``x' - x`` on the card against the CPU
+    plain path within 1% of its max; the final SSM state likewise."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = get_config("jamba-1.5-large-398b").replace(
+        n_layers=8, n_experts=0, param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(23)
+    subs = (M._init_mamba_layer(cfg, (), gen, device, with_ffn=True, use_moe=False),
+            M._init_attn_layer(cfg, (), gen, device, use_moe=False))
+    g = torch.Generator().manual_seed(29)
+    xs = [torch.randn(B, PROMPT, cfg.d_model, generator=g)] + \
+        [torch.randn(B, 1, cfg.d_model, generator=g) for _ in range(4)]
+
+    def run(dev):
+        """[(mamba delta, attention delta) per pass], final SSM state, seconds."""
+        pm, pa = (_map(sub, lambda t: t.to(dev)) for sub in subs)
+        cache = M.init_cache(cfg, B, PROMPT + 4, dev)
+        ml = M.layer_params(M.layer_params(cache["mamba"], 0), 0)
+        al = M.layer_params(cache["attn"], 0)
+        positions = torch.arange(PROMPT, device=dev)[None, :]
+        deltas = []
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for step, x in enumerate(xs):
+                x = x.to(dev)
+                if step == 0:
+                    y, _ = M.prefill_mamba_layer(cfg, pm, ml, x)
+                    z, _ = M.prefill_attn_layer(cfg, pa, al, x, positions, rope=False)
+                else:
+                    y, _ = M._mamba_decode(cfg, pm, x, ml)
+                    z, _ = M._attn_decode(cfg, pa, x, al, PROMPT + step - 1, rope=False)
+                deltas.append(((y - x).cpu(), (z - x).cpu()))
+        return deltas, ml["ssm"].cpu(), time.perf_counter() - t0
+
+    ops.reset_launches()
+    got, got_ssm, card_s = run(device)
+    launches = counts(ops)
+    torch.cuda.empty_cache()
+    want, want_ssm, cpu_s = run("cpu")
+    checks = [(f"{part} pass {step}", a, b) for step, (ga, wa) in enumerate(zip(got, want))
+              for part, a, b in zip(("mamba", "attention"), ga, wa)]
+    checks.append(("final ssm state", got_ssm, want_ssm))
+    errs = []
+    for label, a, b in checks:
+        scale, err = b.abs().max().item(), (a - b).abs().max().item()
+        errs.append({"what": label, "max_abs_err": err, "max_abs": scale})
+        if not torch.isfinite(a).all() or err > 0.01 * scale:
+            raise AssertionError(f"jamba sublayers, {label}: max abs err {err:.4g} "
+                                 f"vs 1% of {scale:.4g}")
+    want_launches = {"flash_attention": 1, "decode_attention": 4, "rmsnorm": 4 * 5}
+    if launches != want_launches:
+        raise AssertionError(f"jamba sublayers: launches {launches}, path implies "
+                             f"{want_launches}")
+    r = {"worst": max(errs, key=lambda e: e["max_abs_err"] / max(e["max_abs"], 1e-30)),
+         "launches": launches, "card_s": card_s, "cpu_s": cpu_s}
+    log(f"jamba sublayers at full width: {json.dumps(r)}")
+    return r
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -1873,6 +2191,18 @@ def main() -> int:
     finally:
         for d in (store_dir, cloud_dir):
             shutil.rmtree(d, ignore_errors=True)
+
+    # 9. the SSM, HYBRID, VLM and ENCDEC families, in a store of their own
+    fam_dir = ROOT / "build" / "smoke_store_fam"
+    shutil.rmtree(fam_dir, ignore_errors=True)
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        families, fam_launches = families_phase(torch, fam_dir, device)
+        families["phase_s"] = time.perf_counter() - t0
+        log(f"phase 9 passed in {families['phase_s']:.1f} s")
+    finally:
+        shutil.rmtree(fam_dir, ignore_errors=True)
     q_launches = {k: sum(x[k] for x in moe["launches"]) for k in moe["launches"][0]}
 
     table = []
@@ -1880,6 +2210,7 @@ def main() -> int:
         k = kern[name]
         table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "launches": launches[name], "q_launches": q_launches[name],
+                      **{m.lower() + "_launches": fam_launches[m][name] for m in fam_launches},
                       "max_abs_err": k["max_abs_err"],
                       "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
                       "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -1894,7 +2225,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
              "stream": stream, "moe": moe, "cloud": cloud, "ipc": ipc, "faas": faas,
-             "cluster": cluster,
+             "cluster": cluster, "families": families,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"moe": moe}))
@@ -1902,6 +2233,7 @@ def main() -> int:
     print(json.dumps({"cloud": cloud}))
     print(json.dumps({"faas": faas}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)

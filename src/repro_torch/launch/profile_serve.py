@@ -1,11 +1,11 @@
 """Where the time of one warm serving request goes, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--model A|Q] [--trace out.json]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--model A|Q|M] [--trace out.json]
 
 Publishes a full-width model (random weights from a fixed seed) into a store
-under ``build/``: ``A``, deepseek-7b cut to 4 layers (the default), or ``Q``,
-qwen3-moe-30b-a3b cut to 2 layers (``chip_smoke.py``'s phase 6). Serves one
-cold request
+under ``build/``: ``A``, deepseek-7b cut to 4 layers (the default), ``Q``,
+qwen3-moe-30b-a3b cut to 2 layers (``chip_smoke.py``'s phase 6), or ``M``,
+mamba2-370m at its full 48 layers (phase 9). Serves one cold request
 through the MRM and the engine, then one warm (device-hit) request under
 ``torch.profiler``. Prints one JSON object: the request's host-clock split,
 the device's busy and idle share over the request (union of kernel and copy
@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[3]
-MODELS = {"A": ("deepseek-7b", 4), "Q": ("qwen3-moe-30b-a3b", 2)}   # arch, layers
+MODELS = {"A": ("deepseek-7b", 4), "Q": ("qwen3-moe-30b-a3b", 2),   # arch, layers
+          "M": ("mamba2-370m", 48)}
 B, PROMPT, NEW, SEED = 2, 512, 16, 0
 PORT_KERNELS = ("flash_fwd", "decode_split_kernel", "rmsnorm_kernel")
 

@@ -10,9 +10,10 @@ The store defaults to ``build/serve_store`` in the checkout, so two
 checkouts never share one.
 
 If the store does not hold the model, a reduced-config model for --arch is
-published first (so the command is self-contained for demos/smoke); a MoE
-arch is published with ``moe_impl="ragged"``, as the JAX launcher does
-(the DENSE and MoE families). With ``--shm-socket`` the MRM's host tier
+published first (so the command is self-contained for demos/smoke); an arch
+with experts is published with ``moe_impl="ragged"``, as the JAX launcher
+does. Every family serves: the VLM and ENCDEC models see the engine's
+stubbed (zero) frontend. With ``--shm-socket`` the MRM's host tier
 lives in shared memory and other processes open models through
 ``core.shm_ipc.RemoteTrimsClient`` on that unix socket while the requests
 run; the server stops when they are done.
@@ -25,7 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.configs import DENSE, MOE, ARCHS, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.costmodel import get_hardware
 from repro_torch.core.mrm import MRM, ModelKey
 from repro_torch.core.store import DiskStore
@@ -36,8 +37,7 @@ ROOT = Path(__file__).resolve().parents[3]
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--store", default=str(ROOT / "build" / "serve_store"))
-    ap.add_argument("--arch", default="olmo-1b",
-                    choices=sorted(n for n, c in ARCHS.items() if c.family in (DENSE, MOE)))
+    ap.add_argument("--arch", default="olmo-1b", choices=sorted(ARCHS))
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,4 +1,4 @@
-"""Model API of the PyTorch port, DENSE and MoE families.
+"""Model API of the PyTorch port: every model family of the JAX package.
 
 Mirrors the JAX package's ``models/model.py``. Parameters are a plain nested
 dict of tensors with layers stacked on a leading axis, exactly as the
@@ -10,7 +10,7 @@ model is plain functions over those dicts and not ``nn.Module``s.
 Entry points::
 
   init_params(cfg, generator, device)         -> params ("meta" = shape template)
-  init_cache(cfg, batch, max_len, device)     -> decode cache (zeros)
+  init_cache(cfg, batch, max_len, device, n_ctx) -> decode cache (zeros)
   prefill(cfg, params, batch, max_len)        -> (logits, cache)
   decode_step(cfg, params, cache, token, pos) -> (logits, cache)
   greedy_generate(cfg, params, batch, n_steps, max_len)
@@ -19,8 +19,22 @@ Entry points::
 
 A MoE layer's ``ffn`` holds a ``router`` and expert banks
 (``models/moe.py``); the layer functions branch on it, as in the JAX model,
-and drop the router's aux loss on the serving path. Other families belong to
-later slices and raise ``NotImplementedError``.
+and drop the router's aux loss on the serving path. The families:
+
+  DENSE, MOE  ``layers``: attention layers, stacked (L, ...)
+  SSM         ``layers``: Mamba-2 mixers (``models/mamba.py``), no FFN
+  HYBRID      ``blocks/sub{i}``: periods of ``attn_every`` sublayers, stacked
+              (nP, ...); sublayer ``attn_every - 1`` is attention without
+              RoPE, the others Mamba-2 with an FFN; MoE on sublayer i where
+              ``i % moe_every == moe_every - 1``
+  VLM         ``blocks/self{i}`` and ``blocks/cross``: periods of
+              ``cross_attn_every - 1`` attention layers and one gated
+              cross-attention layer over ``batch["frontend"]``
+  ENCDEC      ``enc_layers`` (bidirectional) over ``batch["frontend"]``,
+              ``dec_layers`` with causal self- and cross-attention
+
+Only the serving half is here (prefill and decode); the training forward
+and the loss belong to a later slice. Layer streaming serves DENSE and MoE.
 """
 from __future__ import annotations
 
@@ -28,41 +42,96 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, ModelConfig
+from repro_torch.configs.base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as S
 from repro_torch.models import moe as MoE
 
 Params = Dict[str, Any]
+FAMILIES = (DENSE, MOE, SSM, HYBRID, VLM, ENCDEC)
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, MOE):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family belongs to a later slice of the "
-            "PyTorch port (SSM/hybrid, VLM/enc-dec); the port serves DENSE and MoE")
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
 # init_params
 # ---------------------------------------------------------------------------
 
+def _init_attn_layer(cfg: ModelConfig, lead, generator, device, use_moe: bool) -> Params:
+    return {"ln1": L.init_norm(cfg, lead, device),
+            "attn": L.init_attention(cfg, lead, generator, device),
+            "ln2": L.init_norm(cfg, lead, device),
+            "ffn": (MoE.init_moe(cfg, lead, generator, device) if use_moe
+                    else L.init_mlp(cfg, lead, generator, device))}
+
+
+def _init_mamba_layer(cfg: ModelConfig, lead, generator, device, with_ffn: bool,
+                      use_moe: bool) -> Params:
+    p = {"ln1": L.init_norm(cfg, lead, device),
+         "mamba": S.init_mamba(cfg, lead, generator, device)}
+    if with_ffn:
+        p["ln2"] = L.init_norm(cfg, lead, device)
+        p["ffn"] = (MoE.init_moe(cfg, lead, generator, device) if use_moe
+                    else L.init_mlp(cfg, lead, generator, device))
+    return p
+
+
+def _init_cross_layer(cfg: ModelConfig, lead, generator, device) -> Params:
+    """A gated cross-attention layer; the gates are 0 at init (one a period
+    once stacked), so the layer starts as the identity."""
+    return {"ln1": L.init_norm(cfg, lead, device),
+            "xattn": L.init_attention(cfg, lead, generator, device),
+            "ln2": L.init_norm(cfg, lead, device),
+            "ffn": L.init_mlp(cfg, lead, generator, device),
+            "gate_attn": torch.zeros(lead, dtype=cfg.pdtype, device=device),
+            "gate_mlp": torch.zeros(lead, dtype=cfg.pdtype, device=device)}
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
     """Random params with the JAX init's shapes and scales. ``device="meta"``
     gives the shape template (the JAX package's ``jax.eval_shape``)."""
     _check_family(cfg)
-    lead = (cfg.n_layers,)
-    return {
+    params: Params = {
         "embed": L.embed_init((cfg.padded_vocab, cfg.d_model), cfg.pdtype, generator, device),
         "final_norm": L.init_norm(cfg, (), device),
-        "layers": {
-            "ln1": L.init_norm(cfg, lead, device),
-            "attn": L.init_attention(cfg, lead, generator, device),
-            "ln2": L.init_norm(cfg, lead, device),
-            "ffn": (MoE.init_moe(cfg, lead, generator, device) if cfg.n_experts
-                    else L.init_mlp(cfg, lead, generator, device)),
-        },
     }
+    fam = cfg.family
+    if fam in (DENSE, MOE):
+        params["layers"] = _init_attn_layer(cfg, (cfg.n_layers,), generator, device,
+                                            cfg.n_experts > 0)
+    elif fam == SSM:
+        params["layers"] = _init_mamba_layer(cfg, (cfg.n_layers,), generator, device,
+                                             with_ffn=False, use_moe=False)
+    elif fam == HYBRID:
+        period, moe_every = cfg.attn_every, cfg.moe_every
+        lead = (cfg.n_layers // period,)
+        blk = {}
+        for i in range(period):
+            use_moe = cfg.n_experts > 0 and i % moe_every == moe_every - 1
+            blk[f"sub{i}"] = (_init_attn_layer(cfg, lead, generator, device, use_moe)
+                              if i == period - 1 else
+                              _init_mamba_layer(cfg, lead, generator, device, True, use_moe))
+        params["blocks"] = blk
+    elif fam == VLM:
+        period = cfg.cross_attn_every
+        lead = (cfg.n_layers // period,)
+        blk = {f"self{i}": _init_attn_layer(cfg, lead, generator, device, False)
+               for i in range(period - 1)}
+        blk["cross"] = _init_cross_layer(cfg, lead, generator, device)
+        params["blocks"] = blk
+    else:  # ENCDEC
+        params["enc_layers"] = _init_attn_layer(cfg, (cfg.n_enc_layers,), generator, device,
+                                                False)
+        dec = _init_attn_layer(cfg, (cfg.n_dec_layers,), generator, device, False)
+        dec["ln_x"] = L.init_norm(cfg, (cfg.n_dec_layers,), device)
+        dec["xattn"] = L.init_attention(cfg, (cfg.n_dec_layers,), generator, device)
+        params["dec_layers"] = dec
+        params["enc_final_norm"] = L.init_norm(cfg, (), device)
+    return params
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -92,19 +161,49 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
 # decode caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Params:
-    """Zero-filled decode cache, ``(L, B, T, Hkv, hd)`` per K and V."""
-    _check_family(cfg)
-    shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"attn": {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-                     "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}}
-
-
-def _attn_cache_zeros(cfg: ModelConfig, B: int, T: int, device) -> Params:
-    """One layer's zero KV cache, ``(B, T, Hkv, hd)`` per K and V."""
-    shape = (B, T, cfg.n_kv_heads, cfg.head_dim)
+def _attn_cache_zeros(cfg: ModelConfig, B: int, T: int, device, lead=()) -> Params:
+    """Zero KV cache, ``(*lead, B, T, Hkv, hd)`` per K and V."""
+    shape = (*lead, B, T, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+
+def _mamba_cache_zeros(cfg: ModelConfig, B: int, device, lead=()) -> Params:
+    """Zero Mamba-2 decode state: the float32 SSM state and the last
+    ``d_conv - 1`` pre-conv inputs in the activation dtype."""
+    ci = cfg.d_inner + 2 * cfg.d_state
+    return {"ssm": torch.zeros(*lead, B, cfg.n_ssm_heads, cfg.d_state, cfg.ssm_headdim,
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros(*lead, B, cfg.d_conv - 1, ci, dtype=cfg.cdtype,
+                                device=device)}
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda",
+               n_ctx: Optional[int] = None) -> Params:
+    """Zero-filled decode cache, stacked as the params are. ``n_ctx`` is the
+    cross-attention context length (VLM: the frontend's, by default the
+    config's ``n_frontend_tokens``; ENCDEC: the encoder's, by default
+    ``max_len``)."""
+    _check_family(cfg)
+    fam = cfg.family
+    if fam in (DENSE, MOE):
+        return {"attn": _attn_cache_zeros(cfg, B, max_len, device, (cfg.n_layers,))}
+    if fam == SSM:
+        return {"mamba": _mamba_cache_zeros(cfg, B, device, (cfg.n_layers,))}
+    if fam == HYBRID:
+        nP = cfg.n_layers // cfg.attn_every
+        return {"attn": _attn_cache_zeros(cfg, B, max_len, device, (nP,)),
+                "mamba": _mamba_cache_zeros(cfg, B, device, (nP, cfg.attn_every - 1))}
+    if fam == VLM:
+        period = cfg.cross_attn_every
+        nP = cfg.n_layers // period
+        x = _attn_cache_zeros(cfg, B, n_ctx or cfg.n_frontend_tokens, device, (nP,))
+        return {"self": _attn_cache_zeros(cfg, B, max_len, device, (nP, period - 1)),
+                "xk": x["k"], "xv": x["v"]}
+    x = _attn_cache_zeros(cfg, B, n_ctx if n_ctx is not None else max_len, device,
+                          (cfg.n_dec_layers,))
+    return {"attn": _attn_cache_zeros(cfg, B, max_len, device, (cfg.n_dec_layers,)),
+            "xk": x["k"], "xv": x["v"]}
 
 
 def _write_kv(cache_layer: Params, k: torch.Tensor, v: torch.Tensor, start: int) -> Params:
@@ -126,35 +225,146 @@ def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     return L.apply_mlp(p, h)
 
 
+def _ffn_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x + ffn(ln2(x))``."""
+    return x + _ffn(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+
+
+def _self_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+               causal: bool = True, rope: bool = True):
+    """``x + attn(ln1(x))`` over the whole sequence. Returns (x', k, v)."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    q, k, v = L.qkv_project(cfg, p["attn"], h, positions, rope=rope)
+    o = L.attention_core(cfg, q, k, v, causal=causal)
+    return x + L.attention_out(cfg, p["attn"], o), k, v
+
+
+def _cross_kv(cfg: ModelConfig, p: Params, ctx: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project a context (B, S_ctx, D) to cross-attention K/V with the
+    attention params ``p`` (no RoPE)."""
+    B, Sc, _ = ctx.shape
+    k = (ctx @ p["wk"].to(ctx.dtype)).reshape(B, Sc, cfg.n_kv_heads, cfg.head_dim)
+    v = (ctx @ p["wv"].to(ctx.dtype)).reshape(B, Sc, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of the normed stream ``h`` over context K/V: not
+    causal, so the plain path on every device, as in the reference."""
+    q = (h @ p["wq"].to(h.dtype)).reshape(*h.shape[:2], cfg.n_heads, cfg.head_dim)
+    return L.attention_out(cfg, p, L.attention_core(cfg, q, k, v, causal=False))
+
+
+def _apply_cross_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """A VLM cross-attention layer over precomputed context K/V, its two
+    residuals gated by ``tanh(gate)``."""
+    o = _cross_attend(cfg, p["xattn"], L.apply_norm(cfg, p["ln1"], x), k, v)
+    x = x + torch.tanh(p["gate_attn"].to(o.dtype)) * o
+    f = L.apply_mlp(p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    return x + torch.tanh(p["gate_mlp"].to(f.dtype)) * f
+
+
+def _mamba_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A Mamba-2 layer's FFN block where it has one (HYBRID; SSM has none)."""
+    return _ffn_block(cfg, p, x) if "ffn" in p else x
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
 
 def prefill_attn_layer(cfg: ModelConfig, layer: Params, cl: Params,
-                       x: torch.Tensor, positions: torch.Tensor
+                       x: torch.Tensor, positions: torch.Tensor, rope: bool = True
                        ) -> Tuple[torch.Tensor, Params]:
-    """One trunk layer of prefill: (x, kv-cache slot) -> (x', primed slot)."""
+    """One trunk layer of prefill: (x, kv-cache slot) -> (x', primed slot).
+    HYBRID's attention sublayer runs it with ``rope=False``."""
+    x, k, v = _self_attn(cfg, layer, x, positions, rope=rope)
+    return _ffn_block(cfg, layer, x), _write_kv(cl, k, v, 0)
+
+
+def prefill_mamba_layer(cfg: ModelConfig, layer: Params, cl: Params, x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Params]:
+    """One Mamba-2 layer of prefill; its final SSM state and conv tail are
+    written into ``cl`` in place."""
     h = L.apply_norm(cfg, layer["ln1"], x)
-    q, k, v = L.qkv_project(cfg, layer["attn"], h, positions)
-    o = L.attention_core(cfg, q, k, v, causal=True)
-    x = x + L.attention_out(cfg, layer["attn"], o)
-    h = L.apply_norm(cfg, layer["ln2"], x)
-    return x + _ffn(cfg, layer["ffn"], h), _write_kv(cl, k, v, 0)
+    o, (ssm, conv) = S.apply_mamba(cfg, layer["mamba"], h, return_state=True)
+    cl["ssm"].copy_(ssm)
+    cl["conv"].copy_(conv)
+    return _mamba_ffn(cfg, layer, x + o), cl
+
+
+def _encode(cfg: ModelConfig, params: Params, frontend: torch.Tensor) -> torch.Tensor:
+    """The ENCDEC encoder over the frontend's embeddings: bidirectional
+    attention layers (RoPE over the frontend's positions), then its norm."""
+    x = frontend.to(cfg.cdtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i in range(cfg.n_enc_layers):
+        layer = layer_params(params["enc_layers"], i)
+        x, _, _ = _self_attn(cfg, layer, x, positions, causal=False)
+        x = _ffn_block(cfg, layer, x)
+    return L.apply_norm(cfg, params["enc_final_norm"], x)
 
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             max_len: int) -> Tuple[torch.Tensor, Params]:
-    """Run the full prompt, return last-position logits + primed cache."""
+    """Run the full prompt, return last-position logits + primed cache.
+    VLM and ENCDEC read their context from ``batch["frontend"]``
+    (B, S_ctx, D)."""
     _check_family(cfg)
+    fam = cfg.family
     tokens = batch["tokens"]
     B, S = tokens.shape
-    cache = init_cache(cfg, B, max_len, tokens.device)
+    frontend = batch["frontend"].to(cfg.cdtype) if fam in (VLM, ENCDEC) else None
+    cache = init_cache(cfg, B, max_len, tokens.device,
+                       n_ctx=None if frontend is None else frontend.shape[1])
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)[None, :]
-    for i in range(cfg.n_layers):
-        x, _ = prefill_attn_layer(cfg, layer_params(params["layers"], i),
-                                  layer_params(cache["attn"], i), x, positions)
+    if fam in (DENSE, MOE):
+        for i in range(cfg.n_layers):
+            x, _ = prefill_attn_layer(cfg, layer_params(params["layers"], i),
+                                      layer_params(cache["attn"], i), x, positions)
+    elif fam == SSM:
+        for i in range(cfg.n_layers):
+            x, _ = prefill_mamba_layer(cfg, layer_params(params["layers"], i),
+                                       layer_params(cache["mamba"], i), x)
+    elif fam == HYBRID:
+        period = cfg.attn_every
+        for b in range(cfg.n_layers // period):
+            blk = layer_params(params["blocks"], b)
+            mcache = layer_params(cache["mamba"], b)
+            for i in range(period - 1):      # the mamba caches skip the attention index
+                x, _ = prefill_mamba_layer(cfg, blk[f"sub{i}"], layer_params(mcache, i), x)
+            x, _ = prefill_attn_layer(cfg, blk[f"sub{period - 1}"],
+                                      layer_params(cache["attn"], b), x, positions,
+                                      rope=False)
+    elif fam == VLM:
+        period = cfg.cross_attn_every
+        for b in range(cfg.n_layers // period):
+            blk = layer_params(params["blocks"], b)
+            scache = layer_params(cache["self"], b)
+            for i in range(period - 1):
+                x, _ = prefill_attn_layer(cfg, blk[f"self{i}"], layer_params(scache, i),
+                                          x, positions)
+            k, v = _cross_kv(cfg, blk["cross"]["xattn"], frontend)
+            cache["xk"][b].copy_(k)
+            cache["xv"][b].copy_(v)
+            x = _apply_cross_layer(cfg, blk["cross"], x, k, v)
+    else:  # ENCDEC
+        enc = _encode(cfg, params, frontend)
+        for i in range(cfg.n_dec_layers):
+            layer = layer_params(params["dec_layers"], i)
+            x, k, v = _self_attn(cfg, layer, x, positions)
+            _write_kv(layer_params(cache["attn"], i), k, v, 0)
+            ck, cv = _cross_kv(cfg, layer["xattn"], enc)
+            cache["xk"][i].copy_(ck)
+            cache["xv"][i].copy_(cv)
+            x = x + _cross_attend(cfg, layer["xattn"], L.apply_norm(cfg, layer["ln_x"], x),
+                                  ck, cv)
+            x = _ffn_block(cfg, layer, x)
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits[:, 0], cache
 
@@ -163,19 +373,33 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 # decode step
 # ---------------------------------------------------------------------------
 
-def _attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: int
-                 ) -> Tuple[torch.Tensor, Params]:
-    """x: (B,1,D); cl: one layer's KV cache. Returns (x, cache)."""
+def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: int,
+                      rope: bool = True) -> torch.Tensor:
+    """``x + attn(ln1(x))`` for one token; its K/V appended to ``cl`` in place."""
     B = x.shape[0]
     h = L.apply_norm(cfg, p["ln1"], x)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = L.qkv_project(cfg, p["attn"], h, positions)
+    q, k, v = L.qkv_project(cfg, p["attn"], h, positions, rope=rope)
     cl = _write_kv(cl, k, v, pos)
     kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     o = L.decode_attention_core(cfg, q, cl["k"], cl["v"], kv_len)
-    x = x + L.attention_out(cfg, p["attn"], o)
-    h = L.apply_norm(cfg, p["ln2"], x)
-    return x + _ffn(cfg, p["ffn"], h), cl
+    return x + L.attention_out(cfg, p["attn"], o)
+
+
+def _attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: int,
+                 rope: bool = True) -> Tuple[torch.Tensor, Params]:
+    """x: (B,1,D); cl: one layer's KV cache. Returns (x, cache)."""
+    return _ffn_block(cfg, p, _self_attn_decode(cfg, p, x, cl, pos, rope)), cl
+
+
+def _mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params
+                  ) -> Tuple[torch.Tensor, Params]:
+    """x: (B,1,D); cl: one layer's SSM and conv state, updated in place."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    o, ssm, conv = S.mamba_decode_step(cfg, p["mamba"], h, cl["ssm"], cl["conv"])
+    cl["ssm"].copy_(ssm)
+    cl["conv"].copy_(conv)
+    return _mamba_ffn(cfg, p, x + o), cl
 
 
 @torch.inference_mode()
@@ -185,10 +409,40 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
     Returns (logits (B, V), cache); the cache is updated in place."""
     _check_family(cfg)
+    fam, pos = cfg.family, int(pos)
     x = params["embed"][token][:, None, :].to(cfg.cdtype)   # (B,1,D)
-    for i in range(cfg.n_layers):
-        x, _ = _attn_decode(cfg, layer_params(params["layers"], i), x,
-                            layer_params(cache["attn"], i), int(pos))
+    if fam in (DENSE, MOE):
+        for i in range(cfg.n_layers):
+            x, _ = _attn_decode(cfg, layer_params(params["layers"], i), x,
+                                layer_params(cache["attn"], i), pos)
+    elif fam == SSM:
+        for i in range(cfg.n_layers):
+            x, _ = _mamba_decode(cfg, layer_params(params["layers"], i), x,
+                                 layer_params(cache["mamba"], i))
+    elif fam == HYBRID:
+        period = cfg.attn_every
+        for b in range(cfg.n_layers // period):
+            blk = layer_params(params["blocks"], b)
+            mcache = layer_params(cache["mamba"], b)
+            for i in range(period - 1):
+                x, _ = _mamba_decode(cfg, blk[f"sub{i}"], x, layer_params(mcache, i))
+            x, _ = _attn_decode(cfg, blk[f"sub{period - 1}"], x,
+                                layer_params(cache["attn"], b), pos, rope=False)
+    elif fam == VLM:
+        period = cfg.cross_attn_every
+        for b in range(cfg.n_layers // period):
+            blk = layer_params(params["blocks"], b)
+            scache = layer_params(cache["self"], b)
+            for i in range(period - 1):
+                x, _ = _attn_decode(cfg, blk[f"self{i}"], x, layer_params(scache, i), pos)
+            x = _apply_cross_layer(cfg, blk["cross"], x, cache["xk"][b], cache["xv"][b])
+    else:  # ENCDEC
+        for i in range(cfg.n_dec_layers):
+            layer = layer_params(params["dec_layers"], i)
+            x = _self_attn_decode(cfg, layer, x, layer_params(cache["attn"], i), pos)
+            x = x + _cross_attend(cfg, layer["xattn"], L.apply_norm(cfg, layer["ln_x"], x),
+                                  cache["xk"][i], cache["xv"][i])
+            x = _ffn_block(cfg, layer, x)
     logits = _logits(cfg, params, x)
     return logits[:, 0], cache
 
@@ -196,7 +450,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 # ---------------------------------------------------------------------------
 # streaming execution (DESIGN.md §9)
 # ---------------------------------------------------------------------------
-# Per-layer entry points for the attention family: the serving engine walks
+# Per-layer entry points for the DENSE and MoE families: the serving engine walks
 # the trunk layer by layer, starting as soon as the stem + layer 0 windows
 # of a streaming load are resident. Each step reuses the function the batch
 # path runs (prefill_attn_layer / _attn_decode), so streamed generation

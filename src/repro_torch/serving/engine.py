@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, ModelConfig
+from repro_torch.configs.base import DENSE, ENCDEC, MOE, VLM, ModelConfig
 from repro_torch.core.cache import Tier
 from repro_torch.core.client import LoadedModel, TrimsClient, cold_load, free_model
 from repro_torch.core.mrm import MRM, ModelKey
@@ -264,6 +264,10 @@ class InferenceEngine:
             t0 = time.perf_counter()
             batch = {"tokens": torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                                device=self.device)}
+            if sm.cfg.family in (VLM, ENCDEC):   # the stubbed image/audio frontend
+                batch["frontend"] = torch.zeros(B, sm.cfg.n_frontend_tokens or S,
+                                                sm.cfg.d_model, dtype=torch.float32,
+                                                device=self.device)
             pkey = hit = None
             if self.prefix_kv is not None:
                 pkey = prompt_key(name, tokens, max_len)

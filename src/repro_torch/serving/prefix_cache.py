@@ -6,11 +6,13 @@ cache of a shared prompt prefix (system prompts, few-shot preambles). This
 module extends the MRM pattern to it — a byte-capacity LRU tier of prefill
 results keyed by (model, prompt-hash).
 
-Copies, not shares: the port's decode step writes its KV cache IN PLACE
-(``models/model.py::_write_kv``), where the JAX package's returns fresh
-buffers and can hand one stored cache to every decode. So :meth:`insert`
-stores its own clone of the prefill cache, and every :meth:`lookup` hit
-hands back a fresh clone of that: the stored tensors are never the ones a
+Copies, not shares: the port's decode step writes its cache IN PLACE
+(``models/model.py``: the K/V append, and the SSM and conv states of the
+Mamba-2 layers), where the JAX package's returns fresh buffers and can hand
+one stored cache to every decode. So :meth:`insert` stores its own clone of
+the prefill cache, and every :meth:`lookup` hit hands back a fresh clone of
+that, every leaf of the tree: K/V, SSM and conv states, and the cross K/V
+of the VLM and ENCDEC families. The stored tensors are never the ones a
 decode writes into, and concurrent decodes from one prefix stay isolated.
 A hit costs one device copy of the cache instead of a prefill. Logits are
 only read (argmax) and are shared.
@@ -31,7 +33,7 @@ def prompt_key(model: str, tokens: np.ndarray, max_len: int) -> str:
 
 
 def _leaves(tree):
-    """Tensors of a nested dict (a KV cache tree)."""
+    """Tensors of a nested dict (a decode cache tree)."""
     for v in tree.values():
         if isinstance(v, dict):
             yield from _leaves(v)

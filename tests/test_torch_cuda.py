@@ -438,3 +438,82 @@ def test_cloud_hit_tokens_on_the_card(cuda_device, tmp_path):
         assert st.tier_hit == ("cloud" if streaming else "device")
         assert st.streamed == streaming and mrm.stats()["cloud_downloads"] == 1
         np.testing.assert_array_equal(got, want)
+
+
+# the shapes the SSM, HYBRID, VLM and ENCDEC families give the kernels:
+# mamba2-370m's d_model 1024, jamba's and llama-vision's 8192 (prefill and
+# decode rows); attention 64 query over 8 KV heads of 128 (jamba, the
+# llama-vision self layers) and seamless's 16/16 of 64, over a (2, 512)
+# prompt and a (2, 528) cache
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 512, 1024), (2, 1, 1024), (2, 512, 8192), (2, 1, 8192)])
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_rmsnorm_at_the_family_shapes(cuda_device, shape, name):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(*shape, generator=g, device=cuda_device).to(DTYPES[name])
+    s = (torch.randn(shape[-1], generator=g, device=cuda_device) + 1).to(DTYPES[name])
+    before = trms.launches
+    got = trms.rmsnorm(x, s, 1e-5)
+    torch.cuda.synchronize()
+    assert trms.launches == before + 1
+    _close(got, trms.rmsnorm_plain(x, s, 1e-5), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(64, 8, 128), (16, 16, 64)])
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_attention_at_the_family_shapes(cuda_device, heads, name):
+    Hq, Hkv, D = heads
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    dt = DTYPES[name]
+    q, k, v = (torch.randn(2, 512, h, D, generator=g, device=cuda_device).to(dt)
+               for h in (Hq, Hkv, Hkv))
+    before = tflash.launches
+    got = tflash.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1
+    _close(got, tflash.flash_attention_plain(q, k, v, causal=True), name)
+    qd = torch.randn(2, Hq, D, generator=g, device=cuda_device).to(dt)
+    kc, vc = (torch.randn(2, 528, Hkv, D, generator=g, device=cuda_device).to(dt)
+              for _ in "kv")
+    kv_len = torch.tensor([527, 513], dtype=torch.int32, device=cuda_device)
+    before = tdecode.launches
+    got = tdecode.decode_attention(qd, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert tdecode.launches == before + 1
+    _close(got, tdecode.decode_attention_plain(qd, kc, vc, kv_len), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-1.5-large-398b",
+                                  "llama-3.2-vision-90b", "seamless-m4t-large-v2"])
+def test_family_tokens_on_the_card_equal_the_cpu(cuda_device, arch):
+    """A reduced model of each family in float32, at head dim 64 so that
+    the attention families run the kernels: greedy tokens on the card equal
+    the CPU's plain path, with a random frontend and gates at 0.5."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch).reduced().replace(d_model=256, d_head=64, param_dtype="float32",
+                                             compute_dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "vlm":
+        params["blocks"]["cross"]["gate_attn"].fill_(0.5)
+        params["blocks"]["cross"]["gate_mlp"].fill_(0.5)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=g)}
+    if cfg.family in ("vlm", "encdec"):
+        batch["frontend"] = torch.randn(2, cfg.n_frontend_tokens or 24, cfg.d_model,
+                                        generator=g)
+    want = M.greedy_generate(cfg, params, batch, 6, 46)
+    on_card = {n: t.to(cuda_device) for n, t in batch.items()}
+    ops.reset_launches()
+    got = M.greedy_generate(cfg, _to(params, cuda_device), on_card, 6, 46)
+    assert torch.equal(got.cpu(), want)
+    assert (tflash.launches > 0) == (cfg.family != "ssm")
+    assert trms.launches > 0 or cfg.norm_type == "layernorm"
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}

@@ -89,20 +89,28 @@ def test_workers_share_one_device_copy(store):
 
 
 def test_later_slices_raise(store, tmp_path):
-    """Streaming and the prefix-KV cache are on; a family of a later slice
-    (SSM) falls from the streaming path to the batch path, which raises.
-    MoE, which streams, is served in tests/test_torch_moe.py."""
+    """Streaming and the prefix-KV cache are on; SSM, which the JAX engine
+    does not stream either, falls from the streaming path to the batch path
+    without opening a stream, with the JAX streaming engine's tokens. MoE,
+    which streams, is served in tests/test_torch_moe.py; every family in
+    tests/test_torch_family_engine.py."""
     root, _ = store
     eng = _engine(root, streaming=True, prefix_cache_bytes=1 << 20)
     assert eng.streaming and eng.prefix_kv.tier.capacity == 1 << 20
     assert not _engine(root, streaming=True, use_trims=False).streaming
-    cfg = jax_get_config("mamba2-370m").reduced()
+    cfg = jax_get_config("mamba2-370m").reduced().replace(
+        param_dtype="float32", compute_dtype="float32")
     jax_publish_model(JaxDiskStore(str(tmp_path)), cfg,
                       jax_init_params(cfg, jax.random.PRNGKey(0)), name="ssm")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    jeng = JaxInferenceEngine(JaxDiskStore(str(tmp_path)), JaxMRM(
+        JaxDiskStore(str(tmp_path)), device_capacity=1 << 30), streaming=True)
+    want, jst = jeng.generate("ssm", toks, max_new_tokens=3)
     ssm = _engine(str(tmp_path), streaming=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ssm.generate("ssm", np.ones((1, 4), np.int32), max_new_tokens=2)
-    assert ssm.mrm.stats()["stream_opens"] == 0
+    got, st = ssm.generate("ssm", toks, max_new_tokens=3)
+    np.testing.assert_array_equal(got, want)
+    assert (st.streamed, st.tier_hit) == (jst.streamed, jst.tier_hit) == (False, "disk")
+    assert ssm.mrm.stats()["stream_opens"] == jeng.mrm.stats()["stream_opens"] == 0
 
 
 def test_serve_cli_on_cpu(tmp_path, capsys):

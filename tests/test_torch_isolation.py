@@ -33,7 +33,7 @@ def test_port_files_exist():
     assert all(f.exists() for f in files)
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"src/repro_torch/core/layerplan.py", "src/repro_torch/serving/prefix_cache.py",
-            "src/repro_torch/models/moe.py"} <= names
+            "src/repro_torch/models/moe.py", "src/repro_torch/models/mamba.py"} <= names
     assert {f"src/repro_torch/core/{m}.py" for m in (
         "wire", "transport", "shm_ipc", "codec", "objectstore", "faas")} <= names
     assert {f"src/repro_torch/core/{m}.py" for m in (

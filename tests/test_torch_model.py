@@ -106,5 +106,12 @@ def test_bfloat16_logits_match(arch, over):
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        M.init_params(get_config("mamba2-370m").reduced(), device="meta")
+    """Every family of the JAX package is served (tests/test_torch_families.py);
+    only a family it does not know raises, ``ValueError`` as in its
+    ``init_params``."""
+    cfg = get_config("mamba2-370m").reduced()
+    assert M.init_params(cfg, device="meta")["layers"]["mamba"]["A_log"].dtype == torch.float32
+    with pytest.raises(ValueError, match="rnn"):
+        M.init_params(cfg.replace(family="rnn"), device="meta")
+    with pytest.raises(ValueError, match="rnn"):
+        M.init_cache(cfg.replace(family="rnn"), 1, 4, "cpu")
