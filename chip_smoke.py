@@ -16,6 +16,10 @@ Run from the root of a checkout. Phases, each of which raises on failure
    plain version and one PyTorch library call as a yardstick (the port
    never calls it), with the inputs warm in L2 and cold (rotated over more
    than twice the L2's 50 MB), and the time per call issued from Python.
+   At phase 10's training shapes (flash q, k, v (4, 512, 32, 128), RMSNorm
+   rows (4, 512, 4096), bf16 and float32) the ``autograd.Function``s'
+   gradients against autograd through the plain versions, the kernels'
+   forward times, and the plain flash backward beside SDPA's backward.
 3. Serve (the main path): a full-width deepseek-7b (4 and 2 layers, random
    weights from a seed, bf16) is published three times into a store and
    served through the MRM and the inference engine with device and host
@@ -100,12 +104,32 @@ Run from the root of a checkout. Phases, each of which raises on failure
    sublayers at full width (Mamba-2 and attention without RoPE, each with a
    dense FFN), a prefill and 4 decode steps, within 1% of the CPU's.
    Printed as ``{"families": ...}``.
+10. Training, on model A (deepseek-7b at full width, 4 layers; bf16
+   params, float32 moments, remat "nothing", grad_accum 2): (a) one
+   float32 microbatch (1 x 512 tokens) through the card's kernels, its loss
+   and every parameter's gradient against the CPU's plain path, every
+   gradient nonzero; (b) a ``Trainer`` of batch 8 x 512 for 6 steps through
+   a failure injected at step 3 under ``run_with_restarts`` (the two forced
+   checkpoints of the 12.3 GB state in ``build/smoke_train_ckpt``, removed
+   at the end), then the same 6 steps uninterrupted: the resumed steps'
+   losses within 2e-2 of the uninterrupted run's (the embedding gather's
+   backward adds with atomics on the card), each step's launches counted
+   from 0 and held to the path (flash 16, RMSNorm 34); (c) the trained
+   params published and served twice through a fresh MRM and engine (disk,
+   then device hit, one disk load), tokens equal to greedy generation on
+   them in this process; (d) one float32 train step of each family's
+   ``reduced()`` config on the card against the CPU. Printed as
+   ``{"train": ...}``: the step time split into forward, backward and
+   optimizer (CUDA events), tokens/s, peak memory, checkpoint seconds and
+   bytes, the launches a step.
 
-The last lines are the summaries of phases 5, 6, 7, 8 and 9, the first
+The last lines are the summaries of phases 5, 6, 7, 8, 9 and 10, the first
 port's attention kernel times (constants, labelled ``first_port_ms``), the
 kernel table as JSON (``launches``: phase 3's counts; ``q_launches``: phase
-6's; ``m_``/``v_``/``e_``/``j_launches``: phase 9's for each model; ``q_*``:
-times at Q's shapes; ``family_shapes``: times at phase 9's shapes), the
+6's; ``m_``/``v_``/``e_``/``j_launches``: phase 9's for each model;
+``train_launches``: phase 10's a training step; ``q_*``: times at Q's
+shapes; ``family_shapes``: times at phase 9's shapes; ``train_shapes``
+and ``train_bwd``: times at phase 10's), the
 card's name and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": ...}``.
 """
@@ -126,9 +150,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data sheet (dense): HBM3 bytes/s and the bf16 tensor-core peak
+# H100 SXM data sheet (dense): HBM3 bytes/s, the bf16 tensor-core peak and
+# the float32 peak outside the tensor cores
 HBM_BW = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 # Kernel times of the first, simple CUDA kernels that the attention kernels
@@ -222,10 +248,11 @@ def cold_copies(torch, make, nbytes: int):
     return [make() for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
 
 
-def bound(nbytes: float, ops: float):
-    """Least time for the work, in ms: bytes over HBM rate vs bf16 operations
-    over the tensor-core peak, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BW, ops / PEAK_BF16
+def bound(nbytes: float, ops: float, peak: float = PEAK_BF16):
+    """Least time for the work, in ms: bytes over HBM rate vs operations
+    over ``peak`` (bf16 tensor cores by default), and which of the two
+    bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BW, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -388,6 +415,7 @@ def kernel_phase(torch, F):
         out["rmsnorm"].update({pre + x: y for x, y in r.items()})
     q_timings(torch, F, kf, kd, kr, rnd, out)
     family_timings(torch, F, kf, kd, kr, rnd, out)
+    train_shapes(torch, F, kf, kr, rnd, out)
     for name, e in errs.items():
         out[name]["max_abs_err"] = max(e)
         out[name]["q_max_abs_err"] = max(q_errs[name])
@@ -416,18 +444,20 @@ def rmsnorm_times(torch, F, kr, rnd, shape, eps):
     return r
 
 
-def flash_times(torch, F, kf, rnd, hq, hkv, d):
-    """Flash attention's times over a (B, PROMPT) prompt with ``hq`` query
-    and ``hkv`` KV heads of ``d``, bf16, causal: kernel warm, cold and per
-    call, its plain version, SDPA (``enable_gqa``) warm and cold, the bound."""
-    bf = torch.bfloat16
+def flash_times(torch, F, kf, rnd, hq, hkv, d, b=B, dtype=None):
+    """Flash attention's times over a (b, PROMPT) prompt with ``hq`` query
+    and ``hkv`` KV heads of ``d``, causal, bf16 unless ``dtype`` says
+    otherwise: kernel warm, cold and per call, its plain version, SDPA
+    (``enable_gqa``) warm and cold, the bound (float32 against the float32
+    peak outside the tensor cores: the kernel's SIMT path)."""
+    dt = dtype or torch.bfloat16
 
     def make():
-        return rnd(B, PROMPT, hq, d, dtype=bf), rnd(B, PROMPT, hkv, d, dtype=bf), \
-            rnd(B, PROMPT, hkv, d, dtype=bf)
+        return rnd(b, PROMPT, hq, d, dtype=dt), rnd(b, PROMPT, hkv, d, dtype=dt), \
+            rnd(b, PROMPT, hkv, d, dtype=dt)
 
     q, k, v = make()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     sets = cold_copies(torch, make, nbytes)
 
     def sdpa(a):
@@ -441,8 +471,9 @@ def flash_times(torch, F, kf, rnd, hq, hkv, d):
          "plain_ms": time_ms(torch, lambda: kf.flash_attention_plain(q, k, v, causal=True)),
          "library_ms": time_ms(torch, lambda: sdpa((q, k, v))),
          "cold_library_ms": time_ms(torch, [lambda a=a: sdpa(a) for a in sets]),
-         "cold_copies": len(sets), "shape": [B, PROMPT, hq, hkv, d]}
-    r["bound_ms"], r["bound_by"] = bound(nbytes, 4 * d * B * hq * PROMPT * (PROMPT + 1) / 2)
+         "cold_copies": len(sets), "shape": [b, PROMPT, hq, hkv, d], "dtype": str(dt)}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, 4 * d * b * hq * PROMPT * (PROMPT + 1) / 2,
+                                         PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
     return r
 
 
@@ -513,6 +544,97 @@ def family_timings(torch, F, kf, kd, kr, rnd, out):
     out["rmsnorm"]["family_shapes"] = [
         {**rmsnorm_times(torch, F, kr, rnd, shape, 1e-5), "shape": list(shape)}
         for shape in FAMILY_RMSNORM]
+
+
+TRAIN_B = 4            # phase 10's microbatch: batch 8 in 2 accumulation steps
+TRAIN_QKV = (TRAIN_B, PROMPT, 32, 128)
+TRAIN_ROWS = (TRAIN_B, PROMPT, 4096)
+
+
+def grad_err(torch, name, got, want, dtype, case) -> float:
+    """Largest |difference| of two gradients over the reference's largest
+    |value|; bf16 within 2e-2, float32 within 1e-4 (the two sum in other
+    orders; in bf16 the Function's backward rounds ``p`` to bf16 before
+    ``PV``, as the reference's oracle, where the plain version does not)."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    g, w = got.float(), want.float()
+    rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+    if not torch.isfinite(g).all() or rel > tol:
+        raise AssertionError(f"{name} {case} {dtype}: gradient error {rel:.3g} of max over {tol}")
+    return rel
+
+
+def train_shapes(torch, F, kf, kr, rnd, out):
+    """The two ``autograd.Function``s at model A's training shapes (phase
+    10's microbatch): flash q, k, v (4, 512, 32, 128) and RMSNorm rows (4,
+    512, 4096) with their scale, bf16 and float32. Each Function's output
+    and gradients on the card against ``torch.autograd`` through the plain
+    version on the card; the kernels' forward times at these shapes as
+    ``train_shapes`` of their rows (:func:`flash_times`,
+    :func:`rmsnorm_times`); and the plain flash backward (the Function's,
+    the VJP of ``ref.mha_reference``) beside SDPA's backward, per call from
+    Python (``train_bwd``), a yardstick: the port never calls SDPA. Also
+    what the Function costs the serving path per call (RMSNorm at A's
+    decode rows, through the Function and through the wrapper)."""
+    from repro_torch.kernels import ops
+
+    errs = {"flash_attention": [], "rmsnorm": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (rnd(*TRAIN_QKV, dtype=dtype) for _ in "qkv")
+        g = rnd(*TRAIN_QKV, dtype=dtype)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = ops.flash_attention(*leaves)
+        dgot = torch.autograd.grad(got, leaves, g)
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = kf.flash_attention_plain(*plain)
+        dwant = torch.autograd.grad(want, plain, g)
+        check_close(torch, "flash Function", got, want, dtype, TRAIN_QKV)
+        errs["flash_attention"] += [grad_err(torch, f"flash d{n}", a, b, dtype, TRAIN_QKV)
+                                    for n, a, b in zip("qkv", dgot, dwant)]
+        x, sc = rnd(*TRAIN_ROWS, dtype=dtype), rnd(TRAIN_ROWS[-1], dtype=dtype) + 1
+        g = rnd(*TRAIN_ROWS, dtype=dtype)
+        leaves = [x.clone().requires_grad_(), sc.clone().requires_grad_()]
+        got = ops.rmsnorm(*leaves)
+        dgot = torch.autograd.grad(got, leaves, g)
+        plain = [x.clone().requires_grad_(), sc.clone().requires_grad_()]
+        want = kr.rmsnorm_plain(*plain)
+        dwant = torch.autograd.grad(want, plain, g)
+        check_close(torch, "rmsnorm Function", got, want, dtype, TRAIN_ROWS)
+        errs["rmsnorm"] += [grad_err(torch, f"rmsnorm d{n}", a, b, dtype, TRAIN_ROWS)
+                            for n, a, b in zip(("x", "scale"), dgot, dwant)]
+    del q, k, v, x, sc, g, leaves, plain, got, want, dgot, dwant
+    out["flash_attention"]["train_shapes"] = [
+        flash_times(torch, F, kf, rnd, 32, 32, 128, b=TRAIN_B, dtype=dt)
+        for dt in (torch.bfloat16, torch.float32)]
+    out["rmsnorm"]["train_shapes"] = [
+        {**rmsnorm_times(torch, F, kr, rnd, TRAIN_ROWS, 1e-5), "shape": list(TRAIN_ROWS)}]
+
+    bf = torch.bfloat16
+    q, k, v = (rnd(*TRAIN_QKV, dtype=bf).requires_grad_() for _ in "qkv")
+    g = rnd(*TRAIN_QKV, dtype=bf)
+    o = ops.flash_attention(q, k, v)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gt = g.transpose(1, 2)
+    out["flash_attention"]["train_bwd"] = {
+        "shape": list(TRAIN_QKV), "dtype": str(bf),
+        "plain_bwd_call_ms": call_ms(torch, lambda: torch.autograd.grad(
+            o, (q, k, v), g, retain_graph=True), reps=10, trials=5),
+        "library_bwd_call_ms": call_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), gt, retain_graph=True), reps=10, trials=5)}
+    # the serving path's cost of the Function: RMSNorm at A's decode rows
+    # under inference_mode, per call from Python, through the Function and
+    # through the kernel module's wrapper, in turns (wrapper, Function,
+    # Function, wrapper)
+    x, sc = rnd(B, 1, 4096, dtype=bf), rnd(4096, dtype=bf) + 1
+    with torch.inference_mode():
+        turns = [call_ms(torch, lambda f=f: f(x, sc)) for f in (kr.rmsnorm, ops.rmsnorm,
+                                                                 ops.rmsnorm, kr.rmsnorm)]
+    out["rmsnorm"]["decode_rows_call_ms_wrapper_function"] = turns
+    for name, e in errs.items():
+        out[name]["train_grad_max_rel_err"] = max(e)
+    log(f"training shapes: {json.dumps(out['flash_attention']['train_bwd'])}, RMSNorm call "
+        f"ms (wrapper, Function, Function, wrapper) {turns}")
 
 
 def rmsnorm_edges(torch, kr, rnd, dtype):
@@ -2087,6 +2209,333 @@ def _map(tree, fn):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_FAIL_AT = 6, 3
+TRAIN_BATCH = 2 * TRAIN_B               # 8 sequences of PROMPT tokens a step
+RESUME_TOL = 2e-2                       # |loss difference|, resumed vs uninterrupted
+FAMILY_TRAIN = (("deepseek-7b", {}), ("qwen3-moe-30b-a3b", {"moe_impl": "capacity"}),
+                ("qwen3-moe-30b-a3b", {"moe_impl": "ragged"}), ("mamba2-370m", {}),
+                ("jamba-1.5-large-398b", {}), ("llama-3.2-vision-90b", {}),
+                ("seamless-m4t-large-v2", {}))
+
+
+def train_launches(cfg) -> dict:
+    """Launches one training step of A implies: each microbatch runs flash
+    once per layer and RMSNorm twice per layer (ln1, ln2) in the forward,
+    the same again when remat ``"nothing"`` recomputes each layer in the
+    backward, plus the final norm once; the backward itself launches no
+    kernel (the plain VJPs); decode attention never runs."""
+    again = 2 if cfg.remat_policy == "nothing" else 1
+    accum = max(1, cfg.grad_accum)
+    return {"flash_attention": cfg.n_layers * again * accum, "decode_attention": 0,
+            "rmsnorm": (2 * cfg.n_layers * again + 1) * accum}
+
+
+class StepMarks:
+    """The train step's ``mark`` hook: a CUDA event at each mark, and the
+    kernel launches of each step (counts set to 0 at its start)."""
+
+    def __init__(self, torch, ops):
+        self.torch, self.ops = torch, ops
+        self.steps, self.launches = [], []
+
+    def __call__(self, label):
+        if label == "start":
+            self.ops.reset_launches()
+            self.steps.append([])
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.steps[-1].append((label, ev))
+        if label == "optimizer":
+            self.launches.append(counts(self.ops))
+
+    def split_ms(self, i) -> dict:
+        """Step ``i``'s device time by part: forward (from the step's start
+        or the last backward), backward, optimizer."""
+        self.torch.cuda.synchronize()
+        out = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+        marks = self.steps[i]
+        for (_, a), (label, b) in zip(marks, marks[1:]):
+            out[label] += a.elapsed_time(b)
+        return out
+
+
+def train_phase(torch, build: Path, device):
+    """Phase 10 on model A (deepseek-7b at full width, 4 layers, bf16
+    params, float32 moments, remat "nothing", grad_accum 2): (a) the
+    float32 gradient check against the CPU, (b) a Trainer run through an
+    injected failure against an uninterrupted one, (c) the trained model
+    served through the MRM, (d) one float32 step of each family's reduced
+    config against the CPU. Returns (summary, launches of one step)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.runtime import FailureInjector
+
+    cfg = get_config("deepseek-7b").replace(n_layers=4)
+    n = cfg.param_count()
+    state_bytes = n * (cfg.pdtype.itemsize + 2 * getattr(torch, cfg.opt_moment_dtype).itemsize)
+    out = {"model": {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n,
+                     "state_bytes": state_bytes, "remat_policy": cfg.remat_policy,
+                     "grad_accum": cfg.grad_accum, "param_dtype": cfg.param_dtype,
+                     "opt_moment_dtype": cfg.opt_moment_dtype,
+                     "batch": [TRAIN_BATCH, PROMPT], "steps": TRAIN_STEPS}}
+    t0 = time.perf_counter()
+    out["grad_check"] = train_grad_check(torch, cfg, device)
+    out["grad_check"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # (b) through a failure at step 3 (only the two forced saves write), then
+    # the same steps with no failure and no checkpoint
+    free = shutil.disk_usage(build).free
+    if free < 2.5 * state_bytes:
+        raise RuntimeError(f"{build} has {free} bytes free; phase 10 needs 2.5 x {state_bytes}")
+    ckpt = build / "smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(batch_size=TRAIN_BATCH, seq_len=PROMPT, steps=TRAIN_STEPS, warmup=2,
+              ckpt_every=TRAIN_STEPS + 1, log_every=1)
+    t0 = time.perf_counter()
+    try:
+        marks = StepMarks(torch, ops)
+        tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(ckpt), **kw),
+                     injector=FailureInjector(fail_at_steps=[TRAIN_FAIL_AT]), device=device,
+                     mark=marks)
+        # wall seconds of the host snapshot (a synchronous copy from the
+        # card), of the background write, and of a restore to the card
+        io = {"snapshot_s": [], "write_s": [], "restore_s": [], "init_s": []}
+        save, snap = tr.ckpt.save, _timed(tr.ckpt.save, io["snapshot_s"])
+        tr.ckpt.save = lambda step, state, meta=None, force=False: (
+            snap if force or tr.ckpt.should_save(step) else save)(step, state, meta, force)
+        tr.ckpt._write = _timed(tr.ckpt._write, io["write_s"])
+        restore = tr.restore_or_init
+
+        def restore_synced():
+            r = restore()
+            torch.cuda.synchronize()
+            return r
+
+        tr.restore_or_init = lambda: _timed(restore_synced, io[
+            "restore_s" if any(ckpt.glob("LATEST")) else "init_s"])()
+        torch.cuda.reset_peak_memory_stats()
+        params = tr.run_with_restarts(max_restarts=1)["params"]
+        peak_resumed = torch.cuda.max_memory_allocated()
+        ckpt_bytes = {f.parent.name: f.stat().st_size for f in ckpt.glob("step_*/state.trims")}
+        saved = sorted(tr.ckpt.saved_steps)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed_s = time.perf_counter() - t0
+    resumed = {h["step"]: h for h in tr.history}
+    if tr.restarts != 1 or saved != [TRAIN_FAIL_AT, TRAIN_STEPS] or len(io["restore_s"]) != 1 \
+            or sorted(resumed) != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"restarts {tr.restarts}, saves {saved}, restores "
+                             f"{len(io['restore_s'])}, steps {sorted(resumed)}")
+    del tr
+    torch.cuda.empty_cache()
+
+    straight_marks = StepMarks(torch, ops)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr2 = Trainer(cfg, TrainerConfig(**kw), device=device, mark=straight_marks)
+    tr2.run()
+    straight_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    straight = {h["step"]: h for h in tr2.history}
+    del tr2
+    torch.cuda.empty_cache()
+
+    losses = {"resumed": [resumed[i]["loss"] for i in range(TRAIN_STEPS)],
+              "straight": [straight[i]["loss"] for i in range(TRAIN_STEPS)]}
+    diff = [abs(a - b) for a, b in zip(losses["resumed"], losses["straight"])]
+    if not np.isfinite(losses["resumed"] + losses["straight"]).all():
+        raise AssertionError(f"training losses not finite: {losses}")
+    if max(diff[TRAIN_FAIL_AT:]) > RESUME_TOL:
+        raise AssertionError(f"resumed steps' losses differ from the uninterrupted run's by "
+                             f"{max(diff[TRAIN_FAIL_AT:]):.4g} > {RESUME_TOL}: {losses}")
+    want = train_launches(cfg)
+    for label, m in (("resumed", marks), ("straight", straight_marks)):
+        if len(m.launches) != TRAIN_STEPS or any(c != want for c in m.launches):
+            raise AssertionError(f"{label} run: launches a step {m.launches}, path implies {want}")
+    splits = [straight_marks.split_ms(i) for i in range(1, TRAIN_STEPS)]   # step 0 warms up
+    step_s = [straight[i]["step_s"] for i in range(1, TRAIN_STEPS)]
+    tokens = TRAIN_BATCH * PROMPT
+    out["trainer"] = {
+        "losses": losses, "max_loss_diff_resumed_steps": max(diff[TRAIN_FAIL_AT:]),
+        "max_loss_diff_first_steps": max(diff[:TRAIN_FAIL_AT]), "resume_tol": RESUME_TOL,
+        "grad_norm": [straight[i]["grad_norm"] for i in range(TRAIN_STEPS)],
+        "lr": [straight[i]["lr"] for i in range(TRAIN_STEPS)],
+        "step_split_ms": {k: statistics.median(s[k] for s in splits) for k in splits[0]},
+        "step_split_ms_each": splits, "step_s": step_s,
+        "tokens_per_s": tokens / statistics.median(step_s),
+        "max_memory_allocated": peak, "max_memory_allocated_with_checkpoints": peak_resumed,
+        "checkpoint": {**io, "bytes": ckpt_bytes, "saved_steps": saved},
+        "launches_per_step": want, "resumed_run_s": resumed_s, "straight_run_s": straight_s}
+    log(f"trainer: {json.dumps(out['trainer'])}")
+
+    t0 = time.perf_counter()
+    out["serve"] = serve_trained(torch, cfg, params, build, device)
+    out["serve"]["seconds"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["families"] = family_train_steps(torch, device)
+    out["families_seconds"] = time.perf_counter() - t0
+    return out, want
+
+
+def train_grad_check(torch, cfg, device):
+    """(a) One microbatch of A (batch 1, PROMPT tokens) in float32 through
+    the card's kernels (the flash SIMT kernel, RMSNorm in float32), its
+    loss and every parameter's gradient against the same computation on the
+    CPU's plain path (remat "none" there: the same arithmetic, without the
+    recompute). Tolerances: the loss within 1e-5 relative; each leaf's
+    gradient within 1e-3 of that leaf's largest |grad| (float32 on two
+    devices summing in other orders). Every leaf's gradient must be
+    nonzero, and the kernels must have run as the path implies."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_step import value_and_grad
+    from repro_torch.models import model as M
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(31)
+    params = M.init_params(cfg32, gen, device=device)
+    batch = make_batch(cfg32, 0, 1, PROMPT, device=device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    total, metrics, grads = value_and_grad(cfg32, params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = counts(ops)
+    want_launches = {**train_launches(cfg32.replace(grad_accum=1)), "decode_attention": 0}
+    if launches != want_launches:
+        raise AssertionError(f"gradient check: launches {launches}, path implies {want_launches}")
+    got = {n: g.cpu() for n, g in _leaves(grads)}
+    del grads
+    cpu_params = _map(params, lambda t: t.cpu())
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctotal, cmetrics, cgrads = value_and_grad(cfg32.replace(remat_policy="none"), cpu_params,
+                                              {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    if not (torch.isfinite(total) and abs(total.item() - ctotal.item()) <= 1e-5 * abs(ctotal.item())):
+        raise AssertionError(f"gradient check: loss {total.item()} on the card, "
+                             f"{ctotal.item()} on the CPU")
+    worst = {"leaf": None, "rel": 0.0}
+    for name, want in _leaves(cgrads):
+        g = got[name]
+        scale = want.abs().max().item()
+        if g.abs().max().item() == 0 or scale == 0:
+            raise AssertionError(f"gradient check: {name} has a zero gradient")
+        rel = (g - want).abs().max().item() / scale
+        if not torch.isfinite(g).all() or rel > 1e-3:
+            raise AssertionError(f"gradient check: {name} differs by {rel:.3g} of its max")
+        if rel > worst["rel"]:
+            worst = {"leaf": name, "rel": rel, "max_abs_grad": scale}
+    r = {"loss_card": total.item(), "loss_cpu": ctotal.item(), "leaves": len(got),
+         "worst": worst, "launches": launches, "card_s": card_s, "cpu_s": cpu_s}
+    log(f"gradient check: {json.dumps(r)}")
+    return r
+
+
+def serve_trained(torch, cfg, params, build: Path, device):
+    """(c) The trained params published into a store and served twice
+    through a fresh MRM and engine: a disk hit, then a device hit with one
+    disk load; each request's launches counted from 0 and held to its path;
+    the tokens equal greedy generation on the trained params in this process."""
+    import numpy as np
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving import InferenceEngine, publish_model
+
+    store = build / "smoke_store_train"
+    shutil.rmtree(store, ignore_errors=True)
+    try:
+        disk = DiskStore(str(store))
+        publish_model(disk, cfg, params, name="T")
+        toks = prompt(cfg.vocab_size)
+        want = M.greedy_generate(cfg, params, {"tokens": torch.as_tensor(
+            toks, dtype=torch.long, device=device)}, NEW, PROMPT + NEW).cpu().numpy()
+        mrm = MRM(disk, device_capacity=8 * GiB, host_capacity=8 * GiB, hw=get_hardware(),
+                  device=device)
+        engine = InferenceEngine(disk, mrm, device=device)
+        requests = []
+        for _ in range(2):
+            ops.reset_launches()
+            got, st = engine.generate("T", toks, NEW)
+            launches = counts(ops)
+            requests.append({**dataclasses.asdict(st), "launches": launches,
+                             "tokens_sha1": tokens_sha1(got)})
+            if not np.array_equal(got, want):
+                raise AssertionError("trained model: served tokens differ from greedy "
+                                     "generation on the trained params")
+            if launches != path_launches(cfg):
+                raise AssertionError(f"trained model: launches {launches}, path implies "
+                                     f"{path_launches(cfg)}")
+        hits = [r["tier_hit"] for r in requests]
+        if hits != ["disk", "device"] or mrm.stats()["disk_loads"] != 1:
+            raise AssertionError(f"trained model: tier hits {hits}, disk loads "
+                                 f"{mrm.stats()['disk_loads']}")
+        del engine, mrm
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    r = {"requests": requests, "disk_loads": 1}
+    log(f"trained model served: {json.dumps(r)}")
+    return r
+
+
+def family_train_steps(torch, device):
+    """(d) One float32 train step of each family's ``reduced()`` config
+    (DENSE, MoE capacity and ragged, SSM, HYBRID, VLM, ENCDEC; batch the
+    larger of 4 and the config's grad_accum, 32 tokens) from the same
+    params and batch on the card and on the CPU: loss and grad_norm within
+    1e-4 relative (float32, other sum orders, the card's kernels)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train_step import make_optimizer, make_train_step
+    from repro_torch.models import model as M
+
+    out = []
+    for arch, over in FAMILY_TRAIN:
+        cfg = get_config(arch).reduced().replace(param_dtype="float32",
+                                                 compute_dtype="float32", **over)
+        bs = max(4, cfg.grad_accum)
+        params = M.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+        metrics = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            init, update = make_optimizer(cfg, 1e-3, 2, 10)
+            p = _map(params, lambda t: t.to(dev, copy=True))
+            _, _, m = make_train_step(cfg, update)(p, init(p), make_batch(cfg, 0, bs, 32,
+                                                                          device=dev))
+            metrics[where] = {k: v.item() for k, v in m.items()}
+        r = {"arch": arch, **over, "family": cfg.family, "batch": bs, **metrics}
+        for k in ("loss", "grad_norm"):
+            a, b = metrics["card"][k], metrics["cpu"][k]
+            if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                raise AssertionError(f"{arch} {over} train step: {k} {a} on the card, {b} "
+                                     f"on the CPU")
+        out.append(r)
+    log(f"family train steps: {json.dumps(out)}")
+    return out
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2203,6 +2652,13 @@ def main() -> int:
         log(f"phase 9 passed in {families['phase_s']:.1f} s")
     finally:
         shutil.rmtree(fam_dir, ignore_errors=True)
+
+    # 10. training
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train, step_launches = train_phase(torch, ROOT / "build", device)
+    train["phase_s"] = time.perf_counter() - t0
+    log(f"phase 10 passed in {train['phase_s']:.1f} s")
     q_launches = {k: sum(x[k] for x in moe["launches"]) for k in moe["launches"][0]}
 
     table = []
@@ -2210,6 +2666,7 @@ def main() -> int:
         k = kern[name]
         table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "launches": launches[name], "q_launches": q_launches[name],
+                      "train_launches": step_launches[name],
                       **{m.lower() + "_launches": fam_launches[m][name] for m in fam_launches},
                       "max_abs_err": k["max_abs_err"],
                       "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -2225,7 +2682,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
              "stream": stream, "moe": moe, "cloud": cloud, "ipc": ipc, "faas": faas,
-             "cluster": cluster, "families": families,
+             "cluster": cluster, "families": families, "train": train,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"moe": moe}))
@@ -2234,6 +2691,7 @@ def main() -> int:
     print(json.dumps({"faas": faas}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)

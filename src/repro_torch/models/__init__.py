@@ -1,4 +1,4 @@
 """Model functions over plain dicts of tensors, every family of the JAX package."""
 from repro_torch.models.model import (  # noqa: F401
-    decode_step, greedy_generate, init_cache, init_params, prefill,
+    decode_step, forward, greedy_generate, init_cache, init_params, loss_fn, prefill,
 )

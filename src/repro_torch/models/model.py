@@ -10,6 +10,8 @@ model is plain functions over those dicts and not ``nn.Module``s.
 Entry points::
 
   init_params(cfg, generator, device)         -> params ("meta" = shape template)
+  forward(cfg, params, batch)                 -> (logits, aux)     [training path]
+  loss_fn(cfg, params, batch)                 -> (loss, metrics)
   init_cache(cfg, batch, max_len, device, n_ctx) -> decode cache (zeros)
   prefill(cfg, params, batch, max_len)        -> (logits, cache)
   decode_step(cfg, params, cache, token, pos) -> (logits, cache)
@@ -19,7 +21,8 @@ Entry points::
 
 A MoE layer's ``ffn`` holds a ``router`` and expert banks
 (``models/moe.py``); the layer functions branch on it, as in the JAX model,
-and drop the router's aux loss on the serving path. The families:
+and drop the router's aux loss on the serving path (the training forward
+adds it to the loss, as the reference does). The families:
 
   DENSE, MOE  ``layers``: attention layers, stacked (L, ...)
   SSM         ``layers``: Mamba-2 mixers (``models/mamba.py``), no FFN
@@ -33,14 +36,19 @@ and drop the router's aux loss on the serving path. The families:
   ENCDEC      ``enc_layers`` (bidirectional) over ``batch["frontend"]``,
               ``dec_layers`` with causal self- and cross-attention
 
-Only the serving half is here (prefill and decode); the training forward
-and the loss belong to a later slice. Layer streaming serves DENSE and MoE.
+The training forward runs the layers in a Python loop (the reference's
+``lax.scan``) over per-layer views of the stacked params, each body wrapped
+per ``cfg.remat_policy`` (``torch.utils.checkpoint``). It never runs under
+``inference_mode``; prefill and decode always do. Layer streaming serves
+DENSE and MoE.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.models import layers as L
@@ -273,6 +281,107 @@ def _mamba_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# remat and the cache-free layers (training path, encoder)
+# ---------------------------------------------------------------------------
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat ``"dots"``: keep the outputs of
+    products without batch dims (``mm``, ``addmm``: the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` wrapped per ``cfg.remat_policy``: ``"none"``: as it is;
+    ``"nothing"``: ``torch.utils.checkpoint`` (non-reentrant), which saves
+    the body's inputs and recomputes its activations in the backward;
+    ``"dots"``: the same, keeping the outputs of products without batch
+    dims. Where grad is off (prefill under ``inference_mode``) the body runs
+    as it is."""
+    policy = cfg.remat_policy
+    if policy == "none":
+        return fn
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if policy == "dots":
+        try:
+            from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        except ImportError as e:
+            raise NotImplementedError("remat_policy 'dots' needs selective checkpointing "
+                                      f"(torch {torch.__version__} has none)") from e
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_saveable)
+    elif policy != "nothing":
+        raise ValueError(f"remat_policy {policy!r}")
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, **kw)
+
+    return remat
+
+
+def _unstack(stacked: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked tree, as views. ``unbind`` has one
+    stack in its backward, where ``layer_params``' selects would each add a
+    zero-filled gradient of the whole stacked leaf."""
+    layers: List[Params] = [{} for _ in range(n)]
+    for k, v in stacked.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
+
+
+def _scan(cfg: ModelConfig, body: Callable, layers: List[Params], x: torch.Tensor,
+          aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``lax.scan`` over stacked layers: the carry ``(x,
+    aux)`` through ``body(layer, x, aux)`` in order, each call wrapped per
+    ``cfg.remat_policy``."""
+    body = _maybe_remat(cfg, body)
+    for layer in layers:
+        x, aux = body(layer, x, aux)
+    return x, aux
+
+
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn_aux(cfg: ModelConfig, p: Params, h: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's MLP, or its MoE when it has a router, with the router's
+    aux loss (0 for an MLP)."""
+    if "router" in p:
+        return MoE.apply_moe(cfg, p, h)
+    return L.apply_mlp(p, h), _zero_aux(h)
+
+
+def _apply_attn_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                      *, causal: bool = True, rope: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cache-free attention layer: (x', router aux)."""
+    x, _, _ = _self_attn(cfg, p, x, positions, causal=causal, rope=rope)
+    f, aux = _ffn_aux(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    return x + f, aux
+
+
+def _apply_mamba_layer(cfg: ModelConfig, p: Params, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cache-free Mamba-2 layer, with its FFN where it has one (HYBRID):
+    (x', router aux)."""
+    x = x + S.apply_mamba(cfg, p["mamba"], L.apply_norm(cfg, p["ln1"], x))
+    if "ffn" not in p:
+        return x, _zero_aux(x)
+    f, aux = _ffn_aux(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    return x + f, aux
+
+
+# ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
 
@@ -298,13 +407,17 @@ def prefill_mamba_layer(cfg: ModelConfig, layer: Params, cl: Params, x: torch.Te
 
 def _encode(cfg: ModelConfig, params: Params, frontend: torch.Tensor) -> torch.Tensor:
     """The ENCDEC encoder over the frontend's embeddings: bidirectional
-    attention layers (RoPE over the frontend's positions), then its norm."""
+    attention layers (RoPE over the frontend's positions), then its norm.
+    Prefill and the training forward both run it."""
     x = frontend.to(cfg.cdtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_enc_layers):
-        layer = layer_params(params["enc_layers"], i)
-        x, _, _ = _self_attn(cfg, layer, x, positions, causal=False)
-        x = _ffn_block(cfg, layer, x)
+
+    def body(p, x, aux):
+        x, a = _apply_attn_layer(cfg, p, x, positions, causal=False)
+        return x, aux + a
+
+    x, _ = _scan(cfg, body, _unstack(params["enc_layers"], cfg.n_enc_layers), x,
+                 _zero_aux(x))
     return L.apply_norm(cfg, params["enc_final_norm"], x)
 
 
@@ -509,3 +622,100 @@ def greedy_generate(cfg: ModelConfig, params: Params, batch, n_steps: int,
         tok = logits.argmax(-1)
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# forward and loss (training)
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logits (B, S, V) of every position and the summed router aux loss.
+    VLM and ENCDEC read their context from ``batch["frontend"]``."""
+    _check_family(cfg)
+    fam = cfg.family
+    if fam == ENCDEC:
+        return _forward_encdec(cfg, params, batch)
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    aux = _zero_aux(x)
+
+    if fam in (DENSE, MOE, SSM):
+        def body(p, x, aux):
+            x, a = (_apply_mamba_layer(cfg, p, x) if fam == SSM
+                    else _apply_attn_layer(cfg, p, x, positions))
+            return x, aux + a
+
+        x, aux = _scan(cfg, body, _unstack(params["layers"], cfg.n_layers), x, aux)
+    elif fam == HYBRID:
+        period = cfg.attn_every
+        # nested remat, as the reference: the period body keeps only its
+        # carry, and each sublayer is checkpointed too
+        attn_fn = _maybe_remat(cfg, lambda p, x: _apply_attn_layer(cfg, p, x, positions,
+                                                                   rope=False))
+        mamba_fn = _maybe_remat(cfg, lambda p, x: _apply_mamba_layer(cfg, p, x))
+
+        def body(blk, x, aux):
+            for i in range(period):
+                x, a = (attn_fn if i == period - 1 else mamba_fn)(blk[f"sub{i}"], x)
+                aux = aux + a
+            return x, aux
+
+        x, aux = _scan(cfg, body, _unstack(params["blocks"], cfg.n_layers // period), x, aux)
+    else:  # VLM
+        frontend = batch["frontend"].to(cfg.cdtype)
+        period = cfg.cross_attn_every
+        self_fn = _maybe_remat(cfg, lambda p, x: _apply_attn_layer(cfg, p, x, positions))
+        cross_fn = _maybe_remat(cfg, lambda p, x: _apply_cross_layer(
+            cfg, p, x, *_cross_kv(cfg, p["xattn"], frontend)))
+
+        def body(blk, x, aux):
+            for i in range(period - 1):
+                x, a = self_fn(blk[f"self{i}"], x)
+                aux = aux + a
+            return cross_fn(blk["cross"], x), aux
+
+        x, aux = _scan(cfg, body, _unstack(params["blocks"], cfg.n_layers // period), x, aux)
+    return _logits(cfg, params, x), aux
+
+
+def _forward_encdec(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    enc = _encode(cfg, params, batch["frontend"])
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+
+    def body(p, x, aux):
+        x, _, _ = _self_attn(cfg, p, x, positions)
+        ck, cv = _cross_kv(cfg, p["xattn"], enc)
+        x = x + _cross_attend(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x), ck, cv)
+        return _ffn_block(cfg, p, x), aux
+
+    x, aux = _scan(cfg, body, _unstack(params["dec_layers"], cfg.n_dec_layers), x,
+                   _zero_aux(x))
+    return _logits(cfg, params, x), aux
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position NLL in float32, as the reference: the max shift held
+    constant, and the label's logit picked by comparison with a vocab index
+    (no gather)."""
+    logits_f = logits.float()
+    shifted = logits_f - logits_f.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(-1))
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.where(vocab == labels[..., None], shifted, 0.0).sum(-1)
+    return lse - label_logit
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, {"loss", "aux_loss", "perplexity"}): the mean next-token NLL
+    plus ``router_aux_coef`` times the router aux loss."""
+    logits, aux = forward(cfg, params, batch)
+    loss = softmax_cross_entropy(logits, batch["labels"]).mean()
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "perplexity": torch.exp(torch.clamp(loss, max=20.0))}

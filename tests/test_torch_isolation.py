@@ -38,6 +38,9 @@ def test_port_files_exist():
         "wire", "transport", "shm_ipc", "codec", "objectstore", "faas")} <= names
     assert {f"src/repro_torch/core/{m}.py" for m in (
         "directory", "cluster", "placement", "noded", "fleetsim")} <= names
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "optim/adamw", "optim/schedule", "data/pipeline", "checkpoint/checkpoint",
+        "checkpoint/manager", "runtime/fault", "launch/train_step", "launch/train")} <= names
 
 
 def _exported(path: Path):
