@@ -122,8 +122,22 @@ Run from the root of a checkout. Phases, each of which raises on failure
    ``{"train": ...}``: the step time split into forward, backward and
    optimizer (CUDA events), tokens/s, peak memory, checkpoint seconds and
    bytes, the launches a step.
+11. Distribution, on a one-rank NCCL group (a ``FileStore`` in a temporary
+   directory, no TCP port) and a (1, 1) mesh: (a) A trained as (b)'s
+   uninterrupted run through ``Trainer(mesh=...)`` (DTensor params and
+   moments, the kernels on local shards), losses against phase 10's and
+   launches a step flash 16, RMSNorm 34; (b) ``launch.dryrun.run_cell`` of
+   that step in a subprocess (a fake group of one): params and moments
+   bytes equal to the card's, the predicted peak beside
+   ``max_memory_allocated``, dot FLOPs over the step time; (c) A's prefill
+   and 16 greedy decode steps through ``make_prefill_step`` /
+   ``make_decode_step`` on the mesh, tokens and launches equal to phase
+   3's; (d) Q's MoE layer at full width, ``moe_impl="ep"`` against the
+   grouped path (bf16 and float32, gradients, a bit-equal rerun); (e) the
+   int8 all-reduce over a pod axis of one on A's gradients. Printed as
+   ``{"mesh": ...}``.
 
-The last lines are the summaries of phases 5, 6, 7, 8, 9 and 10, the first
+The last lines are the summaries of phases 5, 6, 7, 8, 9, 10 and 11, the first
 port's attention kernel times (constants, labelled ``first_port_ms``), the
 kernel table as JSON (``launches``: phase 3's counts; ``q_launches``: phase
 6's; ``m_``/``v_``/``e_``/``j_launches``: phase 9's for each model;
@@ -616,8 +630,16 @@ def train_shapes(torch, F, kf, kr, rnd, out):
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     gt = g.transpose(1, 2)
+    # the least the backward (q, k, v, dO) -> (dq, dk, dv) could take: each
+    # input read and each output written once (7 tensors), and six
+    # products over the causal triangle (QK^T and PV again, dO V^T, P^T dO,
+    # dS K, dS^T Q)
+    Bt, St, Ht, Dt = TRAIN_QKV
+    tri = Bt * Ht * St * (St + 1) // 2
+    bwd_bound = bound(7 * q.numel() * 2, 6 * 2 * tri * Dt)
     out["flash_attention"]["train_bwd"] = {
         "shape": list(TRAIN_QKV), "dtype": str(bf),
+        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
         "plain_bwd_call_ms": call_ms(torch, lambda: torch.autograd.grad(
             o, (q, k, v), g, retain_graph=True), reps=10, trials=5),
         "library_bwd_call_ms": call_ms(torch, lambda: torch.autograd.grad(
@@ -2536,6 +2558,304 @@ def _leaves(tree, prefix=""):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: distribution (a device mesh of one card)
+# ---------------------------------------------------------------------------
+
+EP_B, EP_S = 2, 512                      # Q's MoE layer: (2, 512) tokens at full width
+EP_TOL_BF16 = 1e-2                       # |ep - grouped| <= this x max |grouped| (bf16)
+EP_TOL_F32 = 1e-5                        # the same in float32
+
+
+def mesh_phase(torch, device, train, tokens_a):
+    """Phase 11: the distribution layer on a one-rank NCCL group (a
+    ``FileStore`` in a temporary directory, no TCP port): (a) A trained as
+    phase 10's uninterrupted run through ``Trainer(mesh=...)`` on a (1, 1)
+    mesh; (b) the dry run of that step (a subprocess: its fake group never
+    shares a process with a real one) against the card's bytes and time;
+    (c) A's prefill and 16 greedy decode steps through the mesh step
+    factories; (d) Q's MoE layer with ``moe_impl="ep"`` on the mesh against
+    the grouped path; (e) the int8 gradient all-reduce over a pod axis of
+    one. Returns its summary."""
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+
+    tmp = tempfile.mkdtemp(prefix="trims_smoke_pg_")
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config("deepseek-7b").replace(n_layers=4)
+        t0 = time.perf_counter()
+        out["train"], state_bytes, peak = mesh_train(torch, cfg, device, mesh, train)
+        out["train"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dryrun"] = mesh_dryrun(cfg, state_bytes, peak, out["train"])
+        out["dryrun"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["serve"], params = mesh_serve(torch, cfg, device, mesh, tokens_a)
+        out["serve"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["compression"] = mesh_compression(torch, cfg, device, params)
+        out["compression"]["seconds"] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["ep"] = mesh_ep(torch, device, mesh)
+        out["ep"]["seconds"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"mesh: {json.dumps(out)}")
+    return out
+
+
+def mesh_train(torch, cfg, device, mesh, train):
+    """(a) Phase 10's uninterrupted run (same data, shapes, steps) with
+    ``Trainer(mesh=mesh)``: params and moments DTensors on the (1, 1) mesh,
+    AdamW on their local shards. Every loss within ``RESUME_TOL`` of phase
+    10's (the embedding backward adds with atomics, so two runs of phase 10
+    differ too; the largest difference is printed, and whether it is 0),
+    launches a step equal to phase 10's."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from torch.distributed.tensor import DTensor
+
+    marks = StepMarks(torch, ops)
+    kw = dict(batch_size=TRAIN_BATCH, seq_len=PROMPT, steps=TRAIN_STEPS, warmup=2,
+              ckpt_every=TRAIN_STEPS + 1, log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, TrainerConfig(**kw), device=device, mark=marks, mesh=mesh)
+    res = tr.run()
+    peak = torch.cuda.max_memory_allocated()
+    leaves = [t for _, t in _leaves(res["params"])] + \
+        [t for _, t in _leaves(res["opt"].mu)] + [t for _, t in _leaves(res["opt"].nu)]
+    if not all(isinstance(t, DTensor) for t in leaves):
+        raise AssertionError("the mesh Trainer's state is not DTensors")
+    state_bytes = sum(t.to_local().numel() * t.to_local().element_size() for t in leaves)
+    hist = {h["step"]: h for h in tr.history}
+    del tr, res, leaves
+    torch.cuda.empty_cache()
+    losses = [hist[i]["loss"] for i in range(TRAIN_STEPS)]
+    ref = train["trainer"]["losses"]["straight"]
+    diff = [abs(a - b) for a, b in zip(losses, ref)]
+    if max(diff) > RESUME_TOL or not np.isfinite(losses).all():
+        raise AssertionError(f"mesh losses {losses} vs phase 10's {ref}")
+    want = train_launches(cfg)
+    if len(marks.launches) != TRAIN_STEPS or any(c != want for c in marks.launches):
+        raise AssertionError(f"mesh run: launches a step {marks.launches}, path implies {want}")
+    splits = [marks.split_ms(i) for i in range(1, TRAIN_STEPS)]
+    step_s = [hist[i]["step_s"] for i in range(1, TRAIN_STEPS)]
+    tokens = TRAIN_BATCH * PROMPT
+    r = {"losses": losses, "phase10_losses": ref, "max_loss_diff": max(diff),
+         "loss_diff_is_zero": max(diff) == 0.0, "step0_loss_equal": losses[0] == ref[0],
+         "launches_per_step": want,
+         "step_split_ms": {k: statistics.median(s[k] for s in splits) for k in splits[0]},
+         "phase10_step_split_ms": train["trainer"]["step_split_ms"],
+         "step_s": step_s, "tokens_per_s": tokens / statistics.median(step_s),
+         "phase10_tokens_per_s": train["trainer"]["tokens_per_s"],
+         "state_bytes": state_bytes, "max_memory_allocated": peak}
+    return r, state_bytes, peak
+
+
+def mesh_dryrun(cfg, state_bytes, peak, trained):
+    """(b) ``launch.dryrun.run_cell`` for A's train step on a (1, 1) mesh
+    with phase 10's batch, in a subprocess: the predicted bytes of params
+    and moments equal to the bytes the card holds for them; the predicted
+    peak beside ``max_memory_allocated``; dot FLOPs a step over the
+    measured step time as a share of the bf16 peak."""
+    code = ("import json, sys; sys.path.insert(0, 'src');"
+            "from repro_torch.configs import ShapeCell;"
+            "from repro_torch.launch.dryrun import run_cell;"
+            f"r = run_cell('deepseek-7b', 'train_4k', False, {{'n_layers': {cfg.n_layers}}}, "
+            f"cell=ShapeCell('phase10', {PROMPT}, {TRAIN_BATCH}, 'train'), mesh_shape=(1, 1));"
+            "print(json.dumps(r))")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env=env)
+    if p.returncode != 0:
+        raise RuntimeError(f"dry run failed: {p.stderr[-2000:]}")
+    rec = json.loads(p.stdout.strip().splitlines()[-1])
+    pd = rec["per_device"]
+    if pd["state_bytes"] != state_bytes:
+        raise AssertionError(f"dry run: params + moments {pd['state_bytes']} bytes predicted, "
+                             f"{state_bytes} held on the card")
+    step = statistics.median(trained["step_s"])
+    flops = rec["op_analysis"]["dot_flops"]
+    r = {"state_bytes_predicted": pd["state_bytes"], "state_bytes_card": state_bytes,
+         "argument_bytes": pd["argument_bytes"], "peak_predicted": pd["peak_hbm_bytes"],
+         "peak_method": pd["peak_method"], "max_memory_allocated": peak,
+         "dot_flops_per_step": flops, "step_s": step,
+         "dot_tflops_per_s": flops / step / 1e12,
+         "share_of_bf16_peak": flops / step / PEAK_BF16,
+         "op_analysis": rec["op_analysis"], "run_s": rec["run_s"]}
+    log(f"dry run vs card: {json.dumps(r)}")
+    return r
+
+
+def mesh_serve(torch, cfg, device, mesh, tokens_a):
+    """(c) A (phase 3's weights: seed 0) placed on the mesh by the rules;
+    its prefill and 15 more greedy decode steps through ``make_prefill_step``
+    and ``make_decode_step`` under the mesh: tokens equal to phase 3's,
+    launches equal to one request of phase 3."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import act_axes, set_mesh
+    from repro_torch.launch.train_step import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.models import partitioning as part
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(cfg, gen, device=device)
+    placed = shd.distribute(params, shd.make_param_shardings(cfg, params, mesh))
+    toks = torch.as_tensor(prompt(cfg.vocab_size), dtype=torch.long, device=device)
+    tok_dt = shd.place(toks, shd.NamedSharding(mesh, shd.batch_leaf_spec(toks, mesh)))
+    prefill, decode = make_prefill_step(cfg, PROMPT + NEW), make_decode_step(cfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with part.activation_axes(*act_axes(mesh)), set_mesh(mesh):
+        logits, cache = prefill(placed, {"tokens": tok_dt})
+        tok = logits.argmax(-1)
+        out = [tok]
+        for i in range(NEW - 1):
+            logits, cache = decode(placed, cache, tok, PROMPT + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+    got = torch.stack([t.full_tensor() for t in out], dim=1).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    launches = counts(ops)
+    del cache, logits, placed
+    if not np.array_equal(got, tokens_a):
+        raise AssertionError("mesh prefill/decode: tokens differ from phase 3's")
+    if launches != path_launches(cfg):
+        raise AssertionError(f"mesh prefill/decode: launches {launches}, path implies "
+                             f"{path_launches(cfg)}")
+    return {"launches": launches, "tokens_sha1": tokens_sha1(got), "generate_s": seconds}, params
+
+
+def mesh_ep(torch, device, mesh):
+    """(d) Q's MoE layer at full width (128 experts top 8, d_model 2048,
+    (2, 512) tokens): ``moe_impl="ep"`` on the mesh against the grouped
+    path, outputs and gradients (of the output's sum, for x and every
+    weight) within EP_TOL_BF16 x max |grouped| in bf16 and EP_TOL_F32 x
+    max in float32; "ep" run twice gives bit-equal outputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import act_axes, set_mesh
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import partitioning as part
+
+    out = {}
+    for dt, tol in (("bfloat16", EP_TOL_BF16), ("float32", EP_TOL_F32)):
+        cfg = get_config("qwen3-moe-30b-a3b").replace(param_dtype=dt, compute_dtype=dt)
+        gen = torch.Generator(device=device).manual_seed(5)
+        p = MoE.init_moe(cfg, (), gen, device)
+        x = torch.randn(EP_B, EP_S, cfg.d_model, generator=gen, device=device).to(cfg.cdtype)
+
+        def grads(cfg, p, x):
+            leaf = {k: v.detach().requires_grad_() for k, v in p.items()}
+            xl = x.detach().requires_grad_()
+            o, aux = MoE.apply_moe(cfg, leaf, xl)
+            g = torch.autograd.grad(o.float().sum() + aux, [xl, *leaf.values()])
+            full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+            return full(o).detach(), [full(t) for t in g]
+
+        want, gw = grads(cfg.replace(moe_impl="grouped"), p, x)
+        sh = shd.make_param_shardings(cfg, {"ffn": p}, mesh)["ffn"]
+        pd = {k: shd.place(v, sh[k]) for k, v in p.items()}
+        xd = shd.place(x, shd.NamedSharding(mesh, shd.batch_leaf_spec(x, mesh)))
+        with part.activation_axes(*act_axes(mesh)), set_mesh(mesh):
+            got, gg = grads(cfg.replace(moe_impl="ep"), pd, xd)
+            again, _ = grads(cfg.replace(moe_impl="ep"), pd, xd)
+        scale = want.abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        gerr = [((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)
+                 ).item() for a, b in zip(gg, gw)]
+        if err > tol * scale or max(gerr) > tol or not torch.equal(got, again):
+            raise AssertionError(f"ep {dt}: output err {err} (max |out| {scale}), grad rel "
+                                 f"errs {gerr}, rerun equal {torch.equal(got, again)}")
+        out[dt] = {"max_abs_err": err, "max_abs_out": scale, "grad_rel_err": max(gerr),
+                   "tol": tol, "rerun_bit_equal": True}
+    return out
+
+
+def mesh_compression(torch, cfg, device, params):
+    """(e) ``make_compressed_grad_fn`` over a pod axis of one on a (1, 1, 1)
+    mesh, on A's gradients (phase 10's first microbatch, 4 x 512): every
+    leaf within scale/2 of the exact gradient that went in (plus half an
+    ulp of the result's dtype, the final cast), the tensor handed to
+    ``all_gather_into_tensor`` int8; the quantise, gather and sum times."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.runtime import compression as C
+
+    mesh3 = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    wire, pairs = [], []
+    gather = dist.all_gather_into_tensor
+    quant = C.quantized_allreduce
+
+    def recording_gather(out, inp, *a, **k):
+        wire.append(inp.dtype)
+        return gather(out, inp, *a, **k)
+
+    def recording_quant(x, group, mark=None):
+        y = quant(x, group, mark)
+        pairs.append((x, y))
+        return y
+
+    times = {"quantise": 0.0, "gather": 0.0, "sum": 0.0}
+    last = [None]
+
+    def mark(label):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times[label] += now - last[0]
+        last[0] = now
+
+    batch = make_batch(cfg, 0, TRAIN_B, PROMPT, device=device)
+    fn = C.make_compressed_grad_fn(lambda p, b: M.loss_fn(cfg, p, b)[0], mesh3, "pod",
+                                   mark=mark)
+    dist.all_gather_into_tensor, C.quantized_allreduce = recording_gather, recording_quant
+    try:
+        torch.cuda.synchronize()
+        orig_tree = C.tree_quantized_allreduce
+
+        def timed_tree(tree, group, mark=None):
+            torch.cuda.synchronize()
+            last[0] = time.perf_counter()
+            return orig_tree(tree, group, mark)
+
+        C.tree_quantized_allreduce = timed_tree
+        fn(params, batch)
+    finally:
+        dist.all_gather_into_tensor, C.quantized_allreduce = gather, quant
+        C.tree_quantized_allreduce = orig_tree
+    worst = 0.0
+    for x, y in pairs:
+        xf = x.float()
+        scale = max(xf.abs().max().item() / 127.0, 1e-20)
+        ulp = torch.finfo(y.dtype).eps * y.float().abs()
+        excess = ((y.float() - xf).abs() - (scale / 2 + ulp / 2)).max().item()
+        worst = max(worst, ((y.float() - xf).abs().max().item()) / scale)
+        if excess > 0:
+            raise AssertionError(f"int8 all-reduce: error exceeds scale/2 by {excess}")
+    if not wire or any(d != torch.int8 for d in wire):
+        raise AssertionError(f"all_gather_into_tensor got {wire}")
+    n_leaves = len(pairs)
+    del pairs
+    return {"leaves": n_leaves, "wire_dtype": "int8", "max_err_over_scale": worst,
+            "times_s": times}
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2661,6 +2981,13 @@ def main() -> int:
     log(f"phase 10 passed in {train['phase_s']:.1f} s")
     q_launches = {k: sum(x[k] for x in moe["launches"]) for k in moe["launches"][0]}
 
+    # 11. distribution: a device mesh of one card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, device, train, tokens_a)
+    mesh["phase_s"] = time.perf_counter() - t0
+    log(f"phase 11 passed in {mesh['phase_s']:.1f} s")
+
     table = []
     for name, (source, replaces) in SOURCES.items():
         k = kern[name]
@@ -2682,7 +3009,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
              "stream": stream, "moe": moe, "cloud": cloud, "ipc": ipc, "faas": faas,
-             "cluster": cluster, "families": families, "train": train,
+             "cluster": cluster, "families": families, "train": train, "mesh": mesh,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"moe": moe}))
@@ -2692,6 +3019,7 @@ def main() -> int:
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"families": families}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)

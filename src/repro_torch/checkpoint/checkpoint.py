@@ -10,9 +10,13 @@ package restores byte for byte::
   <dir>/LATEST                    the newest step dir's name
 
 Leaves are tensors (copied to the host with ``tensor_to_numpy``; bf16 as
-tagged ``uint16`` bits, written as ``"bfloat16"``) or host arrays. The
-reference re-shards a restored leaf onto a mesh; on one card
-:func:`restore_into` puts it on a device instead.
+tagged ``uint16`` bits, written as ``"bfloat16"``) or host arrays. A
+``DTensor`` leaf is gathered whole first (a collective: every rank of its
+mesh calls the save; the manager writes on rank 0 only), so a checkpoint
+holds full tensors and is byte-equal whatever mesh saved it.
+:func:`restore_into` puts a leaf on a device, or, given ``shardings``
+(``launch.sharding.NamedSharding``s), re-shards it onto the mesh in use,
+which may differ from the mesh that saved it.
 """
 from __future__ import annotations
 
@@ -68,8 +72,13 @@ def _unflatten(flat: Dict[str, Any]):
 
 
 def to_host(leaf) -> np.ndarray:
-    """A host copy of a tensor, or the host array as it is."""
-    return tensor_to_numpy(leaf) if torch.is_tensor(leaf) else np.asarray(leaf)
+    """A host copy of a tensor (a DTensor gathered whole), or the host
+    array as it is."""
+    if not torch.is_tensor(leaf):
+        return np.asarray(leaf)
+    if type(leaf) is not torch.Tensor and hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
+    return tensor_to_numpy(leaf)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Dict[str, Any],
@@ -123,12 +132,16 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None
 
 
 def restore_into(template, ckpt_dir: str, step: Optional[int] = None,
-                 device=None) -> Tuple[int, Any]:
+                 device=None, shardings=None) -> Tuple[int, Any]:
     """Restore leaves into ``template``'s exact structure (keeping empty
     subtrees, e.g. non-parametric norms, which a bare unflatten drops), as
     tensors on ``device`` (default: each template leaf's own; a ``"meta"``
-    template needs one)."""
+    template needs one). ``shardings``, a tree like the template's of
+    ``launch.sharding.NamedSharding`` (None leaves stay whole), re-shards
+    each leaf onto its mesh: every rank reads the full leaf and keeps its
+    shard, as the reference's ``device_put`` does from host arrays."""
     step, flat = _read(ckpt_dir, step)
+    flat_sh = _flatten(shardings) if shardings is not None else {}
 
     def fill(prefix, node):
         if isinstance(node, dict):
@@ -139,7 +152,12 @@ def restore_into(template, ckpt_dir: str, step: Optional[int] = None,
         if prefix not in flat:
             raise KeyError(f"checkpoint missing leaf {prefix!r}")
         arr = flat.pop(prefix)      # the host copy goes once its tensor is made
-        return tensor_from_numpy(arr, device if device is not None else node.device)
+        t = tensor_from_numpy(arr, device if device is not None else node.device)
+        sh = flat_sh.get(prefix)
+        if sh is None:
+            return t
+        from repro_torch.launch.sharding import place
+        return place(t, sh)
 
     return step, fill("", template)
 

@@ -2,12 +2,19 @@
 the host (``tensor_to_numpy``, a copy, before the next step updates the
 parameters in place); a background thread serializes it, so the step loop
 never blocks on disk. A queue of one applies back-pressure instead of
-unbounded host memory. A copy of the JAX package's ``checkpoint/manager.py``."""
+unbounded host memory. A copy of the JAX package's ``checkpoint/manager.py``.
+
+Under a process group of several ranks every rank takes the snapshot (a
+sharded state is gathered whole, a collective) and rank 0 alone writes;
+:meth:`wait` ends with a barrier, so no rank reads a step before it is on
+disk."""
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Any, Dict, Optional
+
+import torch
 
 from repro_torch.checkpoint.checkpoint import _flatten, _unflatten, retain, save_checkpoint, to_host
 
@@ -36,6 +43,8 @@ class CheckpointManager:
             raise self._err
         # snapshot to the host NOW: the next step overwrites the state in place
         host = _unflatten({k: to_host(v) for k, v in _flatten(state).items()})
+        if not _is_writer():
+            return
         if self.async_mode:
             self._q.put((step, host, meta))  # back-pressure if one in flight
         else:
@@ -63,3 +72,14 @@ class CheckpointManager:
             self._q.join()
         if self._err is not None:
             raise self._err
+        if _group_size() > 1:
+            torch.distributed.barrier()
+
+
+def _group_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _is_writer() -> bool:
+    return _group_size() == 1 or torch.distributed.get_rank() == 0

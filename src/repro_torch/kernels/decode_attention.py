@@ -90,7 +90,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):     # meta: shapes only (the dry run)
         return decode_attention_plain(q, k_cache, v_cache, kv_len)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k_cache, v_cache, kv_len)):

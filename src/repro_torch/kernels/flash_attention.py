@@ -92,7 +92,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):     # meta: shapes only (the dry run)
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on {v.device}")

@@ -15,6 +15,17 @@ VJP of ``ref.mha_reference``. Neither package has a backward kernel. The
 Functions run on every device, so the CPU tests reach the same backward
 that the card runs; the serving path calls them under ``inference_mode``,
 where they record nothing. Decode attention is inference-only.
+
+Under a device mesh the model's tensors are ``DTensor``s. The kernels write
+through ``data_ptr()`` and cannot take one, so each entry point below runs
+its kernel (or, on the CPU, its plain version) on the local shards through
+``local_map``, with the reference's placements: RMSNorm keeps its rows
+where they are and replicates the normed axis and the scale; attention
+keeps the batch on the batch axes and the query heads on the model axis,
+and replicates the rest (the sequence, a KV cache's time axis). Where the
+KV heads are replicated but the query heads are not, each rank picks the KV
+heads of its own query heads. A weight replicated over an axis its input
+is sharded on gets a partial gradient, summed by DTensor.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.models.partitioning import is_distributed
 
 KERNEL_MODULES = (_flash, _decode, _rmsnorm)
 
@@ -75,11 +87,16 @@ class RmsnormFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D). Differentiable."""
+    if is_distributed(q):
+        return local_attention(lambda q, k, v: FlashAttentionFn.apply(q, k, v, causal),
+                                q, k, v)
     return FlashAttentionFn.apply(q, k, v, causal)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x: (..., D); scale: (D,). Differentiable in ``x`` and ``scale``."""
+    if is_distributed(x):
+        return _local_rmsnorm(x, scale, eps)
     return RmsnormFn.apply(x, scale, eps)
 
 
@@ -87,10 +104,108 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      kv_len: torch.Tensor) -> torch.Tensor:
     """q: (B, Hq, D) or (B, 1, Hq, D); caches: (B, T, Hkv, D)."""
     squeeze = q.dim() == 4
-    if squeeze:
-        q = q[:, 0]
-    out = _decode.decode_attention(q, k_cache, v_cache, kv_len)
+    if is_distributed(q):
+        out = local_attention(_decode.decode_attention, q if squeeze else q[:, None],
+                               k_cache, v_cache, kv_len, squeeze_q=True)
+    else:
+        out = _decode.decode_attention(q[:, 0] if squeeze else q, k_cache, v_cache, kv_len)
     return out[:, None] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# DTensor inputs: the kernels on local shards (``local_map``)
+# ---------------------------------------------------------------------------
+
+def _local_rmsnorm(x, scale, eps):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    # rows stay where they are; the normed axis and partial sums are made whole
+    x_pl = tuple(p if isinstance(p, Shard) and p.dim not in (last, -1) else Replicate()
+                 for p in x.placements)
+    rep = (Replicate(),) * mesh.ndim
+    # rows split over a mesh dim give the scale a partial gradient there
+    g_pl = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in x_pl)
+    scale = _as_dtensor(scale, mesh)
+    fn = local_map(lambda x, s: RmsnormFn.apply(x, s, eps), out_placements=(x_pl,),
+                   in_placements=(x_pl, rep), in_grad_placements=(x_pl, g_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, scale)
+
+
+def _as_dtensor(t, mesh):
+    """A plain tensor beside DTensors is the same on every rank: a
+    replicated DTensor."""
+    if is_distributed(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+
+
+def _kv_heads(a: int, h: int, group: int, k: torch.Tensor) -> torch.Tensor:
+    """The KV heads (axis 2 of ``k``, all of them) that query heads
+    ``a .. a+h-1`` read with ``group`` query heads a KV head."""
+    if h % group == 0:
+        return k[:, :, a // group:(a + h) // group]
+    if group % h == 0:
+        return k[:, :, a // group:a // group + 1]
+    idx = (a + torch.arange(h, device=k.device)) // group
+    return k[:, :, idx]
+
+
+def local_attention(kernel, q, k, v, kv_len=None, squeeze_q=False):
+    """``kernel`` on each rank's shards of q (B, S, Hq, D) and k, v
+    (B, T, Hkv, D) [and kv_len (B,)]: the batch stays on the mesh dims
+    that shard q's dim 0, the query heads on the one that shards its dim 2,
+    and every other dim is replicated. K/V heads are sharded alongside the
+    query heads where they divide, else replicated and picked per rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[2], k.shape[2]
+    sizes = mesh.shape
+    q_pl, kv_pl, kv_grad, b_pl = [], [], [], []
+    head_dim = None
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            q_pl.append(Shard(0)); kv_pl.append(Shard(0)); kv_grad.append(Shard(0))
+            b_pl.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2 and head_dim is None:
+            head_dim = i
+            q_pl.append(Shard(2))
+            if Hkv % sizes[i] == 0:
+                kv_pl.append(Shard(2)); kv_grad.append(Shard(2))
+            else:   # each rank reads a part of the replicated heads
+                kv_pl.append(Replicate()); kv_grad.append(Partial())
+            b_pl.append(Replicate())
+        else:
+            q_pl.append(Replicate()); kv_pl.append(Replicate()); kv_grad.append(Replicate())
+            b_pl.append(Replicate())
+    pick = None
+    if head_dim is not None and isinstance(kv_pl[head_dim], Replicate):
+        h = Hq // sizes[head_dim]
+        pick = (mesh.get_local_rank(head_dim) * h, h, Hq // Hkv)
+
+    def local(q, k, v, *rest):
+        if pick is not None:
+            k, v = _kv_heads(*pick, k), _kv_heads(*pick, v)
+        if squeeze_q:
+            return kernel(q[:, 0], k, v, *rest)
+        return kernel(q, k, v, *rest)
+
+    q_pl, kv_pl, kv_grad = tuple(q_pl), tuple(kv_pl), tuple(kv_grad)
+    out_pl = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2 and squeeze_q else p
+                   for p in q_pl)
+    args, in_pl, grad_pl = [q, k, v], [q_pl, kv_pl, kv_pl], [q_pl, kv_grad, kv_grad]
+    if kv_len is not None:
+        args.append(_as_dtensor(kv_len, mesh))
+        in_pl.append(tuple(b_pl))
+        grad_pl.append(tuple(b_pl))
+    fn = local_map(local, out_placements=(out_pl,), in_placements=tuple(in_pl),
+                   in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(*args)
 
 
 def reset_launches() -> None:

@@ -106,7 +106,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     """x: (..., D); scale: (D,). A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises."""
     global launches, _fn
-    if x.is_cpu:
+    if x.is_cpu or x.is_meta:       # meta: shapes only (the dry run)
         return rmsnorm_plain(x, scale, eps)
     idx = x.get_device()
     if not x.is_cuda or scale.get_device() != idx:

@@ -1,11 +1,12 @@
 """Training loop of the PyTorch port: data prefetch, async checkpointing,
 a failure-injection-aware restart loop, a straggler watchdog.
 
-A copy of the JAX package's ``launch/train.py`` on one card. The mesh,
-``activation_axes`` and ``partitioning`` calls of the reference have no
-counterpart on one device and are left out (the distribution slice). The
-step updates the parameters and moments in place, as the reference's jitted
-step donates them.
+A copy of the JAX package's ``launch/train.py``. With a device mesh the
+parameters and moments are ``DTensor``s placed by the rules of
+``launch/sharding.py``, each rank builds its rows of the batch, and the
+step runs under ``activation_axes`` and ``set_mesh``, as the reference's.
+The step updates the parameters and moments in place, as the reference's
+jitted step donates them.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch olmo-1b --reduced --steps 20 [--ckpt-dir DIR]
@@ -15,6 +16,7 @@ trains a reduced model on the CPU; without ``--device`` it needs a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -26,8 +28,11 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import act_axes, compute_mesh, make_local_mesh, set_mesh
 from repro_torch.launch.train_step import make_optimizer, make_train_step
 from repro_torch.models import model as M
+from repro_torch.models import partitioning as part
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.runtime.fault import FailureInjector, SimulatedFailure, Watchdog
 
@@ -48,11 +53,17 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
                  injector: Optional[FailureInjector] = None, device="cuda",
-                 mark=None):
-        """``mark``: the train step's timing hook (``make_train_step``)."""
+                 mark=None, mesh=None):
+        """``mark``: the train step's timing hook (``make_train_step``).
+        ``mesh``: the device mesh; by default ``make_local_mesh()`` over the
+        ranks of the process group when one is up, else none (plain tensors
+        on ``device``: what a one-device mesh computes, without DTensors)."""
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)
+        if mesh is None and torch.distributed.is_available() and torch.distributed.is_initialized():
+            mesh = make_local_mesh(torch.distributed.get_world_size(), 1)
+        self.mesh = None if mesh is None else compute_mesh(mesh)
         self.injector = injector
         self.history: List[Dict[str, float]] = []
         self.restarts = 0
@@ -66,14 +77,27 @@ class Trainer:
 
     # ------------------------------------------------------------ lifecycle
     def init_state(self, device=None):
-        """Fresh state from seed 0 (``device="meta"``: its shape template)."""
+        """Fresh state from seed 0 (``device="meta"``: its shape template,
+        never sharded). Under a mesh every rank draws the same full
+        parameters and keeps its shards."""
         device = device or self.device
-        gen = (None if torch.device(device).type == "meta"
-               else torch.Generator(device=device).manual_seed(0))
+        meta = torch.device(device).type == "meta"
+        gen = None if meta else torch.Generator(device=device).manual_seed(0)
         params = M.init_params(self.cfg, gen, device=device)
+        if self.mesh is not None and not meta:
+            params = shd.distribute(params, self.param_shardings(params))
         opt = self._opt_init(params)
         return {"params": params, "opt_mu": opt.mu, "opt_nu": opt.nu,
                 "opt_step": opt.step}, 0
+
+    def param_shardings(self, params):
+        return shd.make_param_shardings(self.cfg, params, self.mesh)
+
+    def state_shardings(self, template):
+        """The shardings of a state tree: moments as their parameters,
+        the step whole."""
+        psh = self.param_shardings(template["params"])
+        return {"params": psh, "opt_mu": psh, "opt_nu": psh, "opt_step": None}
 
     def restore_or_init(self):
         """(state, start step): the newest checkpoint restored onto the
@@ -81,7 +105,9 @@ class Trainer:
         made), or a fresh state at step 0."""
         if self.tc.ckpt_dir and latest_step(self.tc.ckpt_dir) is not None:
             template, _ = self.init_state(device="meta")
-            step, state = restore_into(template, self.tc.ckpt_dir, device=self.device)
+            shardings = None if self.mesh is None else self.state_shardings(template)
+            step, state = restore_into(template, self.tc.ckpt_dir, device=self.device,
+                                       shardings=shardings)
             return state, step
         return self.init_state()
 
@@ -94,28 +120,31 @@ class Trainer:
         del state
         wd = Watchdog(timeout=self.tc.watchdog_timeout)
         pf = Prefetcher(self.cfg, self.tc.batch_size, self.tc.seq_len,
-                        start_step=start, device=self.device)
+                        start_step=start, device=self.device,
+                        sharding=None if self.mesh is None else shd.NamedSharding(
+                            self.mesh, shd.batch_spec(self.mesh)))
         next_step = start
         try:
-            for _ in range(start, steps):
-                step_idx, batch = next(pf)
-                t0 = time.perf_counter()
-                if self.injector is not None:
-                    self.injector.maybe_fail(step_idx)
-                params, opt, metrics = self.step_fn(params, opt, batch)
-                metrics = {k: float(v) for k, v in metrics.items()}
-                metrics["step"] = step_idx
-                metrics["step_s"] = time.perf_counter() - t0
-                self.history.append(metrics)
-                next_step = step_idx + 1
-                wd.beat(step_idx)
-                if self.ckpt:
-                    self.ckpt.save(step_idx + 1, {
-                        "params": params, "opt_mu": opt.mu,
-                        "opt_nu": opt.nu, "opt_step": opt.step})
-                if step_idx % self.tc.log_every == 0:
-                    print(f"step {step_idx}: loss={metrics['loss']:.4f} "
-                          f"({metrics['step_s']*1e3:.0f}ms)", flush=True)
+            with self._on_mesh():
+                for _ in range(start, steps):
+                    step_idx, batch = next(pf)
+                    t0 = time.perf_counter()
+                    if self.injector is not None:
+                        self.injector.maybe_fail(step_idx)
+                    params, opt, metrics = self.step_fn(params, opt, batch)
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    metrics["step"] = step_idx
+                    metrics["step_s"] = time.perf_counter() - t0
+                    self.history.append(metrics)
+                    next_step = step_idx + 1
+                    wd.beat(step_idx)
+                    if self.ckpt:
+                        self.ckpt.save(step_idx + 1, {
+                            "params": params, "opt_mu": opt.mu,
+                            "opt_nu": opt.nu, "opt_step": opt.step})
+                    if step_idx % self.tc.log_every == 0:
+                        print(f"step {step_idx}: loss={metrics['loss']:.4f} "
+                              f"({metrics['step_s']*1e3:.0f}ms)", flush=True)
         finally:
             pf.stop()
             wd.stop()
@@ -126,6 +155,14 @@ class Trainer:
                                force=True)
                 self.ckpt.wait()
         return {"params": params, "opt": opt, "history": self.history}
+
+    def _on_mesh(self):
+        """``activation_axes`` and ``set_mesh`` of the mesh (nothing without one)."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(part.activation_axes(*act_axes(self.mesh)))
+            stack.enter_context(set_mesh(self.mesh))
+        return stack
 
     def run_with_restarts(self, max_restarts: int = 3) -> Dict[str, Any]:
         """Supervisor loop: every SimulatedFailure triggers restore+resume."""

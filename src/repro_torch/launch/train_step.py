@@ -1,6 +1,17 @@
 """Train and serve step factories (plain functions; the loops live in
 ``launch/train.py`` and ``serving/engine.py``). A copy of the JAX package's
-``launch/train_step.py`` on one card: no mesh, no jit."""
+``launch/train_step.py``, without jit.
+
+The steps take plain tensors on one device, or ``DTensor``s placed on a
+device mesh by ``launch/sharding.py``; the caller runs them under
+``partitioning.activation_axes`` and ``mesh.set_mesh``, as the reference
+runs its jitted steps (``launch/train.py``, ``launch/dryrun.py``). Under a
+mesh the plain tensors the model makes (positions, masks) stand for
+replicated DTensors (``implicit_replication``), each gradient is reduced
+onto its parameter's placements, and a microbatch is the reference's: rows
+``i*B/accum .. (i+1)*B/accum`` of the global batch, re-sharded over the
+batch axes.
+"""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -9,8 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models import partitioning as part
 from repro_torch.optim import adamw, warmup_cosine
-from repro_torch.optim.adamw import _leaves, _map
+from repro_torch.optim.adamw import _leaves, _map, _sorted
 
 
 def make_optimizer(cfg: ModelConfig, peak_lr: float = 3e-4,
@@ -28,17 +40,64 @@ def value_and_grad(cfg: ModelConfig, params, batch,
     path). ``params`` are not modified; ``mark`` is called with
     ``"forward"`` and ``"backward"`` after each pass."""
     leaf = _map(lambda t: t.detach().requires_grad_(), params)
-    total, metrics = M.loss_fn(cfg, leaf, batch)
-    mark("forward")
-    grads = iter(torch.autograd.grad(total, list(_leaves(leaf)), allow_unused=True))
-    grads = _map(lambda t: _zeros_if_none(next(grads), t), _sorted(leaf))
+    with _replicate_plain(params):
+        total, metrics = M.loss_fn(cfg, leaf, batch)
+        mark("forward")
+        grads = iter(torch.autograd.grad(total, list(_leaves(leaf)), allow_unused=True))
+        grads = _map(lambda t: _on_placements(_zeros_if_none(next(grads), t), t), _sorted(leaf))
     mark("backward")
-    return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    return _host_scalar(total.detach()), {k: _host_scalar(v.detach()) for k, v in metrics.items()}, grads
 
 
-def _sorted(tree):
-    """``tree`` with its dict keys in sorted order (the order of ``_leaves``)."""
-    return {k: _sorted(tree[k]) if isinstance(tree[k], dict) else tree[k] for k in sorted(tree)}
+def _replicate_plain(params):
+    """``implicit_replication`` when the params are DTensors, else nothing."""
+    import contextlib
+    if not part.is_distributed(next(_leaves(params))):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _on_placements(g, p):
+    """A DTensor gradient reduced onto its parameter's placements. Where
+    the gradient comes out replicated over a mesh dim (each rank computed
+    it whole) its copies agree only to rounding, which AdamW would turn
+    into diverging replicas of the parameter: they are averaged over that
+    dim, so every replica takes the same update."""
+    if not part.is_distributed(g):
+        return g
+    from torch.distributed.tensor import Replicate
+    mesh = g.device_mesh
+    computed = [i for i, (a, b) in enumerate(zip(g.placements, p.placements))
+                if isinstance(a, Replicate) and isinstance(b, Replicate) and mesh.size(i) > 1]
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(mesh, p.placements)
+    if computed:
+        local = g.to_local()
+        for i in computed:
+            torch.distributed.all_reduce(local, group=mesh.get_group(i))
+            local.div_(mesh.size(i))
+    return g
+
+
+def _host_scalar(v):
+    """A replicated DTensor scalar as its (same) local value."""
+    if part.is_distributed(v):
+        return v.full_tensor()
+    return v
+
+
+def microbatch(v, accum: int, i: int):
+    """Microbatch ``i`` of ``accum`` of the batch leaf ``v``: rows
+    ``i*B/accum .. (i+1)*B/accum``. A DTensor batch is gathered (token ids:
+    a small collective) and the microbatch re-sharded as ``v`` is, each
+    rank keeping its rows without communication."""
+    if not part.is_distributed(v):
+        return v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+    from torch.distributed.tensor import distribute_tensor
+    full = v.full_tensor()
+    mb = full.reshape(accum, full.shape[0] // accum, *full.shape[1:])[i]
+    return distribute_tensor(mb, v.device_mesh, v.placements, src_data_rank=None)
 
 
 def _zeros_if_none(g: Optional[torch.Tensor], t: torch.Tensor) -> torch.Tensor:
@@ -68,13 +127,12 @@ def make_train_step(cfg: ModelConfig, opt_update,
         else:
             adt = getattr(torch, cfg.opt_moment_dtype)
             dev = next(_leaves(params)).device
-            gsum = _map(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device), params)
+            gsum = _map(lambda p: torch.zeros_like(p, dtype=adt), params)
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             msum = {k: torch.zeros((), dtype=torch.float32, device=dev)
                     for k in ("loss", "aux_loss", "perplexity")}
             for i in range(accum):
-                mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: microbatch(v, accum, i) for k, v in batch.items()}
                 loss, metrics, g = value_and_grad(cfg, params, mb, mark)
                 _map(lambda a, b: a.add_(b.to(adt)), gsum, g)
                 lsum = lsum + loss
@@ -94,13 +152,15 @@ def make_train_step(cfg: ModelConfig, opt_update,
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     def prefill_step(params, batch):
-        return M.prefill(cfg, params, batch, max_len)
+        with _replicate_plain(params):
+            return M.prefill(cfg, params, batch, max_len)
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
     def serve_step(params, cache, token, pos):
-        return M.decode_step(cfg, params, cache, token, pos)
+        with _replicate_plain(params):
+            return M.decode_step(cfg, params, cache, token, pos)
 
     return serve_step

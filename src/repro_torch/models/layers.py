@@ -2,11 +2,12 @@
 
 Mirrors the JAX package's ``models/layers.py`` (dense parts). Parameters are
 plain dicts of tensors in the ``.trims`` layout: weights are ``(in, out)``
-and used as ``x @ W``, never transposed into ``nn.Linear``. The JAX
-``part.shard_*`` layout constraints are the identity on one card and are
-dropped. On CUDA the rmsnorms, prefill attention and decode attention go
-through the hand-written kernels (``repro_torch.kernels``); on the CPU the
-same functions take their plain versions.
+and used as ``x @ W``, never transposed into ``nn.Linear``. The
+``part.shard_*`` layout constraints stand where the reference has them: the
+identity with no mesh, a ``DTensor`` redistribution under one. On CUDA the
+rmsnorms, prefill attention and decode attention go through the
+hand-written kernels (``repro_torch.kernels``); on the CPU the same
+functions take their plain versions.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import partitioning as part
 
 Params = Dict[str, torch.Tensor]
 
@@ -130,9 +132,12 @@ def qkv_project(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = part.shard_heads(part.splittable(q, cfg.n_heads).reshape(B, S, cfg.n_heads,
+                                                                 cfg.head_dim))
+    k = part.shard_heads(part.splittable(k, cfg.n_kv_heads).reshape(B, S, cfg.n_kv_heads,
+                                                                    cfg.head_dim))
+    v = part.shard_heads(part.splittable(v, cfg.n_kv_heads).reshape(B, S, cfg.n_kv_heads,
+                                                                    cfg.head_dim))
     if "q_norm" in p:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
@@ -178,6 +183,14 @@ def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool = True,
     without Pallas."""
     if q.is_cuda and causal and kv_len is None and q.shape[1] == k.shape[1]:
         return kops.flash_attention(q, k, v, causal=True)
+    if part.is_distributed(q):     # on local shards, as the kernels (kernels/ops.py)
+        return kops.local_attention(
+            lambda q, k, v, *kl: _chunked(cfg, q, k, v, causal, kl[0] if kl else None),
+            q, k, v, kv_len)
+    return _chunked(cfg, q, k, v, causal, kv_len)
+
+
+def _chunked(cfg: ModelConfig, q, k, v, causal: bool, kv_len) -> torch.Tensor:
     B, S, H, hd = q.shape
     chunk = min(cfg.attn_chunk, S)
     if S % chunk != 0:
@@ -195,6 +208,12 @@ def decode_attention_core(cfg: ModelConfig, q, k_cache, v_cache, kv_len) -> torc
     cache in place by strides; elsewhere the chunked model path runs."""
     if q.is_cuda:
         return kops.decode_attention(q, k_cache, v_cache, kv_len)
+    k_cache = part.shard_cache(k_cache)
+    v_cache = part.shard_cache(v_cache)
+    if part.is_distributed(q):
+        return kops.local_attention(
+            lambda q, k, v, kl: _mha_chunk(q, k, v, causal=False, q_offset=0, kv_len=kl),
+            q, k_cache, v_cache, kv_len)
     return _mha_chunk(q, k_cache, v_cache, causal=False, q_offset=0, kv_len=kv_len)
 
 
@@ -221,4 +240,5 @@ def init_mlp(cfg: ModelConfig, lead: Tuple[int, ...], generator, device) -> Para
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["w_gate"].to(x.dtype))
     u = x @ p["w_up"].to(x.dtype)
-    return (g * u) @ p["w_down"].to(x.dtype)
+    h = part.shard_ffn(g * u)
+    return h @ p["w_down"].to(x.dtype)

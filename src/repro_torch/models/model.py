@@ -39,7 +39,8 @@ adds it to the loss, as the reference does). The families:
 The training forward runs the layers in a Python loop (the reference's
 ``lax.scan``) over per-layer views of the stacked params, each body wrapped
 per ``cfg.remat_policy`` (``torch.utils.checkpoint``). It never runs under
-``inference_mode``; prefill and decode always do. Layer streaming serves
+``inference_mode``; prefill and decode always do (under a mesh, ``no_grad``:
+DTensor views need version counters). Layer streaming serves
 DENSE and MoE.
 """
 from __future__ import annotations
@@ -54,6 +55,7 @@ from repro_torch.configs.base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, Model
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as S
 from repro_torch.models import moe as MoE
+from repro_torch.models import partitioning as part
 
 Params = Dict[str, Any]
 FAMILIES = (DENSE, MOE, SSM, HYBRID, VLM, ENCDEC)
@@ -143,8 +145,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def layer_params(stacked: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree, as views."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+    """Layer ``i`` of a stacked tree, as views (under a mesh, gathered whole
+    over the batch axes: ``partitioning.gather_fsdp``)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else part.gather_fsdp(v[i])
             for k, v in stacked.items()}
 
 
@@ -154,7 +157,7 @@ def layer_params(stacked: Params, i: int) -> Params:
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = x @ params["embed"].to(x.dtype).T
+    logits = part.shard_logits(x @ part.gather_fsdp(params["embed"]).to(x.dtype).T)
     if cfg.padded_vocab != cfg.vocab_size:  # mask Megatron-style vocab pad
         pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
@@ -162,7 +165,13 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.cdtype)
+    return _res(cfg, part.embed_lookup(params["embed"], tokens).to(cfg.cdtype))
+
+
+def _res(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Residual-stream constraint (batch-sharded: see
+    ``partitioning.shard_residual``)."""
+    return part.shard_residual(x, allow_seq=cfg.family not in (SSM, HYBRID))
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +223,30 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda",
             "xk": x["k"], "xv": x["v"]}
 
 
+def _placed_cache(tokens, template: Params) -> Params:
+    """Zero caches of ``template``'s shapes (meta tensors) as DTensors on
+    the mesh of the DTensor ``tokens``, placed by
+    ``launch.sharding.cache_spec``, each rank making only its shards."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import sharding as shd
+    mesh = tokens.device_mesh
+    dev = tokens.to_local().device
+    sh = shd.specs_to_shardings(shd.make_cache_specs(template, mesh, tokens.shape[0]), mesh)
+
+    def zeros(t, s):
+        return DTensor.from_local(torch.zeros(s.shard_shape(tuple(t.shape)), dtype=t.dtype,
+                                              device=dev),
+                                  mesh, s.placements, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    return _map_leaves(zeros, template, sh)
+
+
+def _map_leaves(fn, tree, *rest):
+    return {k: _map_leaves(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
 def _write_kv(cache_layer: Params, k: torch.Tensor, v: torch.Tensor, start: int) -> Params:
     """KV append, written IN PLACE into the cache (a view of the stacked
     cache, or one layer's own cache on the streaming path). The JAX version
@@ -252,8 +285,10 @@ def _cross_kv(cfg: ModelConfig, p: Params, ctx: torch.Tensor
     """Project a context (B, S_ctx, D) to cross-attention K/V with the
     attention params ``p`` (no RoPE)."""
     B, Sc, _ = ctx.shape
-    k = (ctx @ p["wk"].to(ctx.dtype)).reshape(B, Sc, cfg.n_kv_heads, cfg.head_dim)
-    v = (ctx @ p["wv"].to(ctx.dtype)).reshape(B, Sc, cfg.n_kv_heads, cfg.head_dim)
+    k = part.splittable(ctx @ p["wk"].to(ctx.dtype), cfg.n_kv_heads)
+    v = part.splittable(ctx @ p["wv"].to(ctx.dtype), cfg.n_kv_heads)
+    k = k.reshape(B, Sc, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, Sc, cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -261,7 +296,8 @@ def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """Cross-attention of the normed stream ``h`` over context K/V: not
     causal, so the plain path on every device, as in the reference."""
-    q = (h @ p["wq"].to(h.dtype)).reshape(*h.shape[:2], cfg.n_heads, cfg.head_dim)
+    q = part.splittable(h @ p["wq"].to(h.dtype), cfg.n_heads)
+    q = q.reshape(*h.shape[:2], cfg.n_heads, cfg.head_dim)
     return L.attention_out(cfg, p, L.attention_core(cfg, q, k, v, causal=False))
 
 
@@ -272,7 +308,7 @@ def _apply_cross_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, k: torch.Te
     o = _cross_attend(cfg, p["xattn"], L.apply_norm(cfg, p["ln1"], x), k, v)
     x = x + torch.tanh(p["gate_attn"].to(o.dtype)) * o
     f = L.apply_mlp(p["ffn"], L.apply_norm(cfg, p["ln2"], x))
-    return x + torch.tanh(p["gate_mlp"].to(f.dtype)) * f
+    return _res(cfg, x + torch.tanh(p["gate_mlp"].to(f.dtype)) * f)
 
 
 def _mamba_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -342,10 +378,16 @@ def _scan(cfg: ModelConfig, body: Callable, layers: List[Params], x: torch.Tenso
     """The reference's ``lax.scan`` over stacked layers: the carry ``(x,
     aux)`` through ``body(layer, x, aux)`` in order, each call wrapped per
     ``cfg.remat_policy``."""
-    body = _maybe_remat(cfg, body)
+    body = _maybe_remat(cfg, functools.partial(_gathered, body))
     for layer in layers:
         x, aux = body(layer, x, aux)
     return x, aux
+
+
+def _gathered(body: Callable, layer: Params, x, aux):
+    """``body`` on the layer's params gathered over the batch axes inside
+    the (rematerialised) body, so that the backward gathers them again."""
+    return body(part.gather_fsdp(layer), x, aux)
 
 
 def _zero_aux(x: torch.Tensor) -> torch.Tensor:
@@ -367,7 +409,7 @@ def _apply_attn_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: t
     """A cache-free attention layer: (x', router aux)."""
     x, _, _ = _self_attn(cfg, p, x, positions, causal=causal, rope=rope)
     f, aux = _ffn_aux(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
-    return x + f, aux
+    return _res(cfg, x + f), aux
 
 
 def _apply_mamba_layer(cfg: ModelConfig, p: Params, x: torch.Tensor
@@ -376,9 +418,9 @@ def _apply_mamba_layer(cfg: ModelConfig, p: Params, x: torch.Tensor
     (x', router aux)."""
     x = x + S.apply_mamba(cfg, p["mamba"], L.apply_norm(cfg, p["ln1"], x))
     if "ffn" not in p:
-        return x, _zero_aux(x)
+        return _res(cfg, x), _zero_aux(x)
     f, aux = _ffn_aux(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
-    return x + f, aux
+    return _res(cfg, x + f), aux
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +433,7 @@ def prefill_attn_layer(cfg: ModelConfig, layer: Params, cl: Params,
     """One trunk layer of prefill: (x, kv-cache slot) -> (x', primed slot).
     HYBRID's attention sublayer runs it with ``rope=False``."""
     x, k, v = _self_attn(cfg, layer, x, positions, rope=rope)
-    return _ffn_block(cfg, layer, x), _write_kv(cl, k, v, 0)
+    return _res(cfg, _ffn_block(cfg, layer, x)), _write_kv(cl, k, v, 0)
 
 
 def prefill_mamba_layer(cfg: ModelConfig, layer: Params, cl: Params, x: torch.Tensor
@@ -421,7 +463,20 @@ def _encode(cfg: ModelConfig, params: Params, frontend: torch.Tensor) -> torch.T
     return L.apply_norm(cfg, params["enc_final_norm"], x)
 
 
-@torch.inference_mode()
+def _serving_step(fn: Callable) -> Callable:
+    """Run ``fn(cfg, params, ...)`` under ``inference_mode``, or, with
+    DTensor params (a mesh), under ``no_grad``: DTensor's views need the
+    version counters that inference tensors do not have."""
+    @functools.wraps(fn)
+    def step(cfg, params, *args, **kwargs):
+        dist = part.is_distributed(params.get("embed"))
+        with torch.no_grad() if dist else torch.inference_mode():
+            return fn(cfg, params, *args, **kwargs)
+
+    return step
+
+
+@_serving_step
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             max_len: int) -> Tuple[torch.Tensor, Params]:
     """Run the full prompt, return last-position logits + primed cache.
@@ -432,8 +487,11 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     B, S = tokens.shape
     frontend = batch["frontend"].to(cfg.cdtype) if fam in (VLM, ENCDEC) else None
-    cache = init_cache(cfg, B, max_len, tokens.device,
+    dist = part.is_distributed(tokens)
+    cache = init_cache(cfg, B, max_len, "meta" if dist else tokens.device,
                        n_ctx=None if frontend is None else frontend.shape[1])
+    if dist:
+        cache = _placed_cache(tokens, cache)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)[None, :]
     if fam in (DENSE, MOE):
@@ -515,7 +573,7 @@ def _mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params
     return _mamba_ffn(cfg, p, x + o), cl
 
 
-@torch.inference_mode()
+@_serving_step
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 token: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Params]:
     """One decode step. token: (B,) ints; pos: cache length so far.
@@ -523,7 +581,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     Returns (logits (B, V), cache); the cache is updated in place."""
     _check_family(cfg)
     fam, pos = cfg.family, int(pos)
-    x = params["embed"][token][:, None, :].to(cfg.cdtype)   # (B,1,D)
+    x = part.shard_btd(part.embed_lookup(params["embed"], token)[:, None, :]
+                       .to(cfg.cdtype))                                    # (B,1,D)
     if fam in (DENSE, MOE):
         for i in range(cfg.n_layers):
             x, _ = _attn_decode(cfg, layer_params(params["layers"], i), x,
@@ -599,7 +658,7 @@ def stream_logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Te
 def stream_decode_embed(cfg: ModelConfig, params: Params, token: torch.Tensor
                         ) -> torch.Tensor:
     """Stem half of a decode step: (B,) token -> (B, 1, D)."""
-    return params["embed"][token][:, None, :].to(cfg.cdtype)
+    return part.shard_btd(part.embed_lookup(params["embed"], token)[:, None, :].to(cfg.cdtype))
 
 
 @torch.inference_mode()
@@ -691,7 +750,7 @@ def _forward_encdec(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Ten
         x, _, _ = _self_attn(cfg, p, x, positions)
         ck, cv = _cross_kv(cfg, p["xattn"], enc)
         x = x + _cross_attend(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x), ck, cv)
-        return _ffn_block(cfg, p, x), aux
+        return _res(cfg, _ffn_block(cfg, p, x)), aux
 
     x, aux = _scan(cfg, body, _unstack(params["dec_layers"], cfg.n_dec_layers), x,
                    _zero_aux(x))
@@ -701,7 +760,10 @@ def _forward_encdec(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Ten
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-position NLL in float32, as the reference: the max shift held
     constant, and the label's logit picked by comparison with a vocab index
-    (no gather)."""
+    (no gather). Under a mesh, vocab-parallel
+    (``partitioning.vocab_parallel_nll``)."""
+    if part.is_distributed(logits):
+        return part.vocab_parallel_nll(logits, labels)
     logits_f = logits.float()
     shifted = logits_f - logits_f.amax(-1, keepdim=True).detach()
     lse = torch.log(torch.exp(shifted).sum(-1))

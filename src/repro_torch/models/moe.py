@@ -11,7 +11,17 @@ products, and here they are ``torch.bmm`` / ``@``.
 ``ragged``    sort-by-expert and one product per non-empty expert over its
               contiguous rows. No capacity drops.
 ``grouped``   capacity dispatch per batch row, (B, E, C, D) buffers.
-``ep``        on one device, the grouped path (see :func:`apply_moe`).
+``ep``        expert parallelism over the mesh's ``model`` axis
+              (:func:`moe_ep`); the grouped path without a mesh.
+
+Under a device mesh (``DTensor`` inputs) ``ep`` is the reference's
+``moe_ep_shardmap``: each rank of the ``model`` axis owns E/TP experts,
+routes its rows of the token block (replicated over ``model``), computes
+only the assignments that land on its experts, and one all-reduce over
+``model`` adds the partial outputs. The other paths index and scatter in
+ways DTensor has no rule for, so they run whole on every rank: the tokens
+and expert weights gathered, the result replicated (the reference leaves
+their partitioning to GSPMD).
 
 Two choices keep every path exact and repeatable, on the CPU and on CUDA:
 
@@ -32,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import partitioning as part
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -216,16 +227,155 @@ def moe_capacity_grouped(cfg: ModelConfig, p: Params, x: torch.Tensor
     return out, aux
 
 
-def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss)."""
+def _apply_local(cfg: ModelConfig, p: Params, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, D = x.shape
     if cfg.moe_impl == "ragged":
         out, aux = moe_ragged(cfg, p, x.reshape(B * S, D))
         return out.reshape(B, S, D), aux
     if cfg.moe_impl in ("grouped", "ep"):
-        # "ep" without a mesh is the grouped path, as in the reference;
-        # expert-parallel sharding belongs to the distribution slice
+        # "ep" without a mesh is the grouped path, as in the reference
         return moe_capacity_grouped(cfg, p, x)
     out, aux = moe_capacity(cfg, p, x.reshape(B * S, D))
     return out.reshape(B, S, D), aux
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss)."""
+    if not part.is_distributed(x):
+        return _apply_local(cfg, p, x)
+    if cfg.moe_impl == "ep":
+        return moe_ep(cfg, p, x)
+    return _replicated(cfg, p, x)
+
+
+# ---------------------------------------------------------------------------
+# under a device mesh
+# ---------------------------------------------------------------------------
+
+
+def _replicated(cfg: ModelConfig, p: Params, x):
+    """A non-EP path on DTensors: every rank runs it on the whole token
+    block with the whole weights; the output is replicated, then pinned to
+    the batch axes."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    names = sorted(p)
+    fn = local_map(lambda x, *w: _apply_local(cfg, dict(zip(names, w)), x),
+                   out_placements=(rep, rep), in_placements=(rep,) * (1 + len(names)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    out, aux = fn(x, *(p[k] for k in names))
+    return part.shard_btd(out), aux
+
+
+def moe_ep(cfg: ModelConfig, p: Params, x):
+    """Explicit expert parallelism over the ``model`` axis of ``x``'s mesh
+    (the reference's ``moe_ep_shardmap``). Falls back to the grouped path
+    (replicated) without a ``model`` axis or when E % TP != 0.
+
+    Each rank keeps its rows of the batch (the batch axes), all of S and D,
+    and E/TP experts with their whole FFN width. It routes its rows over
+    all E experts, dispatches per row with the grouped path's capacity
+    C = ceil(S*K/E * cf), runs its experts, and combines each token's K
+    rows by gather and an ordered float32 sum (no atomics); the rows of
+    experts it does not own are zero. The partial outputs are a DTensor
+    ``Partial`` over ``model``, whose redistribution is the one all-reduce.
+    The aux loss needs the global means of the routing: each rank returns
+    its sums (model rank 0's alone, so the other ranks' identical routing is
+    not counted again, in value or in gradient), and the mesh adds them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    if "model" not in sizes or cfg.n_experts % sizes["model"]:
+        return _replicated(cfg.replace(moe_impl="grouped"), p, x)
+    mdim = names.index("model")
+    tp = sizes["model"]
+    m = mesh.get_local_rank(mdim)
+    E = cfg.n_experts
+    E_l = E // tp
+    B, S, D = x.shape
+    C = _capacity(S, cfg)
+
+    x_pl, out_pl, sum_pl, w_pl, w_grad, r_grad, x_grad = [], [], [], [], [], [], []
+    for i, name in enumerate(names):
+        if i == mdim:
+            x_pl.append(Replicate()); x_grad.append(Partial())
+            out_pl.append(Partial()); sum_pl.append(Partial())
+            w_pl.append(Shard(0)); w_grad.append(Shard(0)); r_grad.append(Partial())
+        elif name in ("pod", "data", part.FLAT) and B % mesh.shape[i] == 0 and \
+                isinstance(x.placements[i], Shard) and x.placements[i].dim == 0:
+            x_pl.append(Shard(0)); x_grad.append(Shard(0))
+            out_pl.append(Shard(0)); sum_pl.append(Partial())
+            w_pl.append(Replicate()); w_grad.append(Partial()); r_grad.append(Partial())
+        else:
+            for lst in (x_pl, x_grad, out_pl, sum_pl, w_pl, w_grad, r_grad):
+                lst.append(Replicate())
+    x_pl, out_pl, sum_pl, w_pl = tuple(x_pl), tuple(out_pl), tuple(sum_pl), tuple(w_pl)
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(xl, router, wg, wu, wd):
+        out, frac_sum, prob_sum = _ep_local(cfg, xl, router, wg, wu, wd, m * E_l, C)
+        if m != 0:      # one model rank's routing sums count
+            frac_sum, prob_sum = frac_sum * 0, prob_sum * 0
+        return out, frac_sum, prob_sum
+
+    fn = local_map(local, out_placements=(out_pl, sum_pl, sum_pl),
+                   in_placements=(x_pl, rep, w_pl, w_pl, w_pl),
+                   in_grad_placements=(tuple(x_grad), tuple(r_grad), tuple(w_grad),
+                                       tuple(w_grad), tuple(w_grad)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    out, frac_sum, prob_sum = fn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    out = part.shard_btd(out.redistribute(mesh, tuple(Replicate() if isinstance(pl, Partial)
+                                                      else pl for pl in out_pl)))
+    n_tok = B * S
+    aux = E * ((frac_sum / n_tok) * (prob_sum / n_tok)).sum()
+    aux = aux.redistribute(mesh, rep) if part.is_distributed(aux) else aux
+    if cfg.n_shared_experts:
+        out = out + _shared_ffn(p, x.reshape(B * S, D)).reshape(B, S, D)
+    return out, aux
+
+
+def _ep_local(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor, wg, wu, wd,
+              e0: int, C: int):
+    """One rank's share of :func:`moe_ep`: x (b, S, D) its rows, the
+    experts ``e0 .. e0 + E_l - 1`` (``wg``/``wu``/``wd`` their banks).
+    Returns (the partial output (b, S, D), the per-expert sums over its
+    tokens of the top-k indicator and of the router probabilities)."""
+    b, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    E_l = wg.shape[0]
+    dt = x.dtype
+    logits = (x.reshape(b * S, D) @ router.to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :K], topi[:, :K]
+    topw = (topw / topw.sum(-1, keepdim=True)).to(dt)
+    frac_sum = F.one_hot(topi, E).float().sum((0, 1))
+    prob_sum = probs.sum(0)
+
+    rel = topi.reshape(b, S * K) - e0
+    valid = (rel >= 0) & (rel < E_l)
+    e_loc = torch.where(valid, rel, E_l)                             # E_l: not ours
+    slot = _slot_positions(e_loc, E_l + 1, C)
+    slot = torch.where(valid & (slot < E_l * C), slot, E_l * C)      # others, drops -> trash
+    rows = torch.arange(b, device=x.device)[:, None]
+    tok_flat = torch.arange(S, device=x.device).repeat_interleave(K).expand(b, S * K)
+    slot_tok = torch.full((b, E_l * C + 1), S, dtype=torch.long, device=x.device)
+    slot_tok[rows, slot] = tok_flat
+    slot_w = torch.zeros(b, E_l * C + 1, dtype=dt, device=x.device)
+    slot_w[rows, slot] = topw.reshape(b, S * K)
+    slot_tok, slot_w = slot_tok[:, :-1], slot_w[:, :-1]
+
+    x_pad = torch.cat([x, x.new_zeros(b, 1, D)], dim=1)
+    xe = x_pad[rows, slot_tok]                                       # (b, E_l*C, D)
+    xe = xe.reshape(b, E_l, C, D).transpose(0, 1).reshape(E_l, b * C, D)
+    ye = _expert_ffn_batched({"w_gate": wg, "w_up": wu, "w_down": wd}, xe, dt)
+    ye = ye.reshape(E_l, b, C, D).transpose(0, 1).reshape(b, E_l * C, D)
+    ye = ye * slot_w[..., None]
+    out = _combine(torch.cat([ye, ye.new_zeros(b, 1, D)], dim=1)[rows, slot], K, dt)
+    return out, frac_sum, prob_sum

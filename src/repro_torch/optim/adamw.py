@@ -12,6 +12,12 @@ parameter's dtype, which rounds otherwise in bf16.
 ``update`` writes the new parameters and moments into the tensors it was
 given, as the reference's train step donates them, and returns those trees:
 the state is never held twice.
+
+Under a device mesh the parameters, gradients and moments are ``DTensor``s
+with equal placements. The update is elementwise, so it runs on each
+rank's local shards (``to_local()``) without DTensor dispatch and without a
+collective, as ZeRO does; only the global gradient norm sums each rank's
+partial sum of squares (a replicated shard counted once) over the mesh.
 """
 from __future__ import annotations
 
@@ -36,19 +42,53 @@ def _leaves(tree) -> Iterator[torch.Tensor]:
             yield v
 
 
+def _sorted(tree):
+    """``tree`` with its dict keys in sorted order (the order of ``_leaves``)."""
+    return {k: _sorted(tree[k]) if isinstance(tree[k], dict) else tree[k] for k in sorted(tree)}
+
+
 def _map(fn, tree, *rest):
     return {k: _map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
             else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
+def _is_dtensor(t) -> bool:
+    return type(t) is not torch.Tensor and hasattr(t, "to_local")
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself otherwise)."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in _leaves(tree)))
+    """sqrt of the sum of squares of every leaf, leaf by leaf in order. For
+    DTensors each rank sums its shards' squares, a shard replicated over n
+    ranks divided by n, and the mesh adds the partial sums."""
+    leaves = list(_leaves(tree))
+    if not leaves or not _is_dtensor(leaves[0]):
+        return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = leaves[0].device_mesh
+
+    def part_sum(l):
+        s = torch.sum(torch.square(l.to_local().float()))
+        n = 1
+        for size, p in zip(mesh.shape, l.placements):
+            n *= size if isinstance(p, Replicate) else 1
+        return s / n if n > 1 else s
+
+    total = sum(part_sum(l) for l in leaves)
+    total = DTensor.from_local(total, mesh, (Partial(),) * mesh.ndim, run_check=False)
+    return torch.sqrt(total.full_tensor())
 
 
 def clip_by_global_norm(tree, max_norm: float):
+    """(tree scaled so that its global norm is at most ``max_norm``, the
+    norm). DTensor leaves come back as their local shards."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return _map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+    return _map(lambda g: (_local(g).float() * scale).to(g.dtype), tree), norm
 
 
 def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -59,7 +99,7 @@ def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor],
 
     def init(params) -> AdamWState:
         device = next(_leaves(params)).device
-        zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)  # noqa: E731
+        zeros = lambda p: torch.zeros_like(p, dtype=mdt)  # noqa: E731 (a DTensor keeps its placements)
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                           mu=_map(zeros, params), nu=_map(zeros, params))
 
@@ -85,7 +125,8 @@ def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor],
             m.copy_(mf)
             v.copy_(vf)
 
-        _map(upd, grads, state.mu, state.nu, params)
+        _map(lambda g, m, v, p: upd(_local(g), _local(m), _local(v), _local(p)),
+             grads, state.mu, state.nu, params)
         return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
 
     return init, update

@@ -571,3 +571,75 @@ def test_train_step_on_the_card_equals_the_cpu(cuda_device, arch):
             assert tflash.launches > 0 and trms.launches > 0
     for k in ("loss", "grad_norm"):
         assert abs(metrics[0][k] - metrics[1][k]) <= 1e-4 * abs(metrics[1][k]), k
+
+
+def _mesh_of_one():
+    """A (1, 1) mesh over a one-rank NCCL group (a ``FileStore`` in a fresh
+    temporary directory); the caller destroys the group."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    tmp = tempfile.mkdtemp(prefix="trims_test_pg_")
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                            world_size=1)
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+@pytest.mark.cuda
+def test_mesh_reaches_the_kernels_on_local_shards(cuda_device):
+    """A reduced deepseek-7b's prefill, decode steps and a train step,
+    through a (1, 1) mesh (DTensors, the kernels on the local shards via
+    ``local_map``), launch each kernel as often as without the mesh and
+    give the same tokens and loss."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import act_axes, set_mesh
+    from repro_torch.launch.train_step import (make_decode_step, make_optimizer,
+                                               make_prefill_step, make_train_step)
+    from repro_torch.models import model as M
+    from repro_torch.models import partitioning as part
+
+    cfg = get_config("deepseek-7b").reduced()
+    params = M.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                           device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device)
+    batch = make_batch(cfg, 0, 4, 64, device=cuda_device)
+
+    def run(p, tok, b):
+        counts = []
+        ops.reset_launches()
+        logits, cache = make_prefill_step(cfg, 72)(p, {"tokens": tok})
+        t = logits.argmax(-1)
+        out = [t]
+        for i in range(7):
+            logits, cache = make_decode_step(cfg)(p, cache, t, 64 + i)
+            t = logits.argmax(-1)
+            out.append(t)
+        counts.append([m.launches for m in ops.KERNEL_MODULES])
+        init, update = make_optimizer(cfg, 1e-3, 2, 10)
+        ops.reset_launches()
+        _, _, metrics = make_train_step(cfg, update)(p, init(p), b)   # updates p in place
+        counts.append([m.launches for m in ops.KERNEL_MODULES])
+        full = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x  # noqa: E731
+        return torch.stack([full(x) for x in out], 1), counts, float(metrics["loss"])
+
+    clone = lambda tree: {k: clone(v) if isinstance(v, dict) else v.clone()  # noqa: E731
+                          for k, v in tree.items()}
+    want, want_counts, want_loss = run(clone(params), toks, batch)
+    mesh = _mesh_of_one()
+    try:
+        placed = shd.distribute(params, shd.make_param_shardings(cfg, params, mesh))
+        bsh = shd.NamedSharding(mesh, shd.batch_spec(mesh))
+        tok = shd.place(toks, bsh)
+        b = {k: shd.place(v, bsh) for k, v in batch.items()}
+        with part.activation_axes(*act_axes(mesh)), set_mesh(mesh):
+            got, counts, loss = run(placed, tok, b)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
+    assert loss == want_loss
+    assert counts == want_counts
+    assert all(c > 0 for c in counts[0]) and counts[1][0] > 0 and counts[1][2] > 0

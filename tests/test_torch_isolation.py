@@ -41,6 +41,9 @@ def test_port_files_exist():
     assert {f"src/repro_torch/{m}.py" for m in (
         "optim/adamw", "optim/schedule", "data/pipeline", "checkpoint/checkpoint",
         "checkpoint/manager", "runtime/fault", "launch/train_step", "launch/train")} <= names
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "launch/mesh", "launch/sharding", "launch/specs", "launch/op_analysis",
+        "launch/dryrun", "models/partitioning", "runtime/compression")} <= names
 
 
 def _exported(path: Path):
