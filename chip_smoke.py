@@ -2290,7 +2290,8 @@ def train_phase(torch, build: Path, device):
     float32 gradient check against the CPU, (b) a Trainer run through an
     injected failure against an uninterrupted one, (c) the trained model
     served through the MRM, (d) one float32 step of each family's reduced
-    config against the CPU. Returns (summary, launches of one step)."""
+    config against the CPU. Returns (summary, launches of one step, the
+    uninterrupted run's final parameters on the host)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2361,11 +2362,12 @@ def train_phase(torch, build: Path, device):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr2 = Trainer(cfg, TrainerConfig(**kw), device=device, mark=straight_marks)
-    tr2.run()
+    final = tr2.run()["params"]
     straight_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     straight = {h["step"]: h for h in tr2.history}
-    del tr2
+    straight_params = {k: t.detach().cpu() for k, t in _leaves(final)}   # phase 11's reference
+    del tr2, final
     torch.cuda.empty_cache()
 
     losses = {"resumed": [resumed[i]["loss"] for i in range(TRAIN_STEPS)],
@@ -2404,7 +2406,7 @@ def train_phase(torch, build: Path, device):
     t0 = time.perf_counter()
     out["families"] = family_train_steps(torch, device)
     out["families_seconds"] = time.perf_counter() - t0
-    return out, want
+    return out, want, straight_params
 
 
 def train_grad_check(torch, cfg, device):
@@ -2564,9 +2566,12 @@ def _leaves(tree, prefix=""):
 EP_B, EP_S = 2, 512                      # Q's MoE layer: (2, 512) tokens at full width
 EP_TOL_BF16 = 1e-2                       # |ep - grouped| <= this x max |grouped| (bf16)
 EP_TOL_F32 = 1e-5                        # the same in float32
+MESH_TOL = 1e-5                          # |mesh - phase 10| / |phase 10|, each step's loss
+                                         # and grad norm (the H100's readings are 0)
+MESH_PARAM_TOL = 1e-3                    # per leaf: |mesh - phase 10| <= this x |phase 10 - init|
 
 
-def mesh_phase(torch, device, train, tokens_a):
+def mesh_phase(torch, device, train, trained, tokens_a):
     """Phase 11: the distribution layer on a one-rank NCCL group (a
     ``FileStore`` in a temporary directory, no TCP port): (a) A trained as
     phase 10's uninterrupted run through ``Trainer(mesh=...)`` on a (1, 1)
@@ -2575,7 +2580,8 @@ def mesh_phase(torch, device, train, tokens_a):
     (c) A's prefill and 16 greedy decode steps through the mesh step
     factories; (d) Q's MoE layer with ``moe_impl="ep"`` on the mesh against
     the grouped path; (e) the int8 gradient all-reduce over a pod axis of
-    one. Returns its summary."""
+    one. ``trained``: phase 10's final parameters (host). Returns its
+    summary."""
     import tempfile
     import numpy as np
     import torch.distributed as dist
@@ -2590,7 +2596,7 @@ def mesh_phase(torch, device, train, tokens_a):
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
         cfg = get_config("deepseek-7b").replace(n_layers=4)
         t0 = time.perf_counter()
-        out["train"], state_bytes, peak = mesh_train(torch, cfg, device, mesh, train)
+        out["train"], state_bytes, peak = mesh_train(torch, cfg, device, mesh, train, trained)
         out["train"]["seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["dryrun"] = mesh_dryrun(cfg, state_bytes, peak, out["train"])
@@ -2614,13 +2620,15 @@ def mesh_phase(torch, device, train, tokens_a):
     return out
 
 
-def mesh_train(torch, cfg, device, mesh, train):
+def mesh_train(torch, cfg, device, mesh, train, trained):
     """(a) Phase 10's uninterrupted run (same data, shapes, steps) with
     ``Trainer(mesh=mesh)``: params and moments DTensors on the (1, 1) mesh,
-    AdamW on their local shards. Every loss within ``RESUME_TOL`` of phase
-    10's (the embedding backward adds with atomics, so two runs of phase 10
-    differ too; the largest difference is printed, and whether it is 0),
-    launches a step equal to phase 10's."""
+    AdamW on their local shards. Each step's loss and grad norm within
+    ``MESH_TOL`` of phase 10's (the largest differences are printed, and
+    whether they are 0); the final parameters against phase 10's
+    (``trained``), leaf by leaf, within ``MESH_PARAM_TOL`` of how far that
+    leaf moved from the seed-0 draw both runs start from, and the
+    parameters must have moved; launches a step equal to phase 10's."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.launch.train import Trainer, TrainerConfig
@@ -2639,13 +2647,19 @@ def mesh_train(torch, cfg, device, mesh, train):
         raise AssertionError("the mesh Trainer's state is not DTensors")
     state_bytes = sum(t.to_local().numel() * t.to_local().element_size() for t in leaves)
     hist = {h["step"]: h for h in tr.history}
+    moved = param_agreement(torch, cfg, device, res["params"], trained)
     del tr, res, leaves
     torch.cuda.empty_cache()
     losses = [hist[i]["loss"] for i in range(TRAIN_STEPS)]
+    norms = [hist[i]["grad_norm"] for i in range(TRAIN_STEPS)]
     ref = train["trainer"]["losses"]["straight"]
+    ref_norms = train["trainer"]["grad_norm"]
     diff = [abs(a - b) for a, b in zip(losses, ref)]
-    if max(diff) > RESUME_TOL or not np.isfinite(losses).all():
-        raise AssertionError(f"mesh losses {losses} vs phase 10's {ref}")
+    rel = [d / abs(b) for d, b in zip(diff, ref)]
+    ndiff = [abs(a - b) / abs(b) for a, b in zip(norms, ref_norms)]
+    if max(rel + ndiff) > MESH_TOL or not np.isfinite(losses + norms).all():
+        raise AssertionError(f"mesh losses {losses} vs phase 10's {ref}; grad norms {norms} "
+                             f"vs {ref_norms}")
     want = train_launches(cfg)
     if len(marks.launches) != TRAIN_STEPS or any(c != want for c in marks.launches):
         raise AssertionError(f"mesh run: launches a step {marks.launches}, path implies {want}")
@@ -2654,6 +2668,10 @@ def mesh_train(torch, cfg, device, mesh, train):
     tokens = TRAIN_BATCH * PROMPT
     r = {"losses": losses, "phase10_losses": ref, "max_loss_diff": max(diff),
          "loss_diff_is_zero": max(diff) == 0.0, "step0_loss_equal": losses[0] == ref[0],
+         "grad_norms": norms, "phase10_grad_norms": ref_norms,
+         "max_loss_rel_diff": max(rel), "max_grad_norm_rel_diff": max(ndiff),
+         "grad_norm_diff_is_zero": max(ndiff) == 0.0,
+         "tol": MESH_TOL, "params": moved,
          "launches_per_step": want,
          "step_split_ms": {k: statistics.median(s[k] for s in splits) for k in splits[0]},
          "phase10_step_split_ms": train["trainer"]["step_split_ms"],
@@ -2661,6 +2679,36 @@ def mesh_train(torch, cfg, device, mesh, train):
          "phase10_tokens_per_s": train["trainer"]["tokens_per_s"],
          "state_bytes": state_bytes, "max_memory_allocated": peak}
     return r, state_bytes, peak
+
+
+def param_agreement(torch, cfg, device, got, trained) -> dict:
+    """Each leaf of the mesh run's final parameters ``got`` against phase
+    10's (``trained``, host): |got - trained| <= MESH_PARAM_TOL x
+    |trained - init| (L2 norms, float32; init the seed-0 draw both runs
+    start from), so a leaf whose update was dropped or misapplied fails,
+    and a leaf that did not move must be bit-equal. The parameters must
+    have moved: the sum of |trained - init|^2 over the leaves is above 0."""
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    init = dict(_leaves(init_params(cfg, gen, device=device)))
+    worst, moved_sq, n_moved, equal = 0.0, 0.0, 0, True
+    for k, t in _leaves(got):
+        g = t.full_tensor() if hasattr(t, "full_tensor") else t
+        w = trained[k].to(device)
+        d = (g.float() - w.float()).norm().item()
+        m = (w.float() - init[k].float()).norm().item()
+        if d > MESH_PARAM_TOL * m:
+            raise AssertionError(f"mesh param {k}: |mesh - phase 10| {d} > {MESH_PARAM_TOL} x "
+                                 f"|phase 10 - init| {m}")
+        worst = max(worst, d / m if m else 0.0)
+        moved_sq, n_moved = moved_sq + m * m, n_moved + (m > 0)
+        equal = equal and torch.equal(g, w)
+    del init
+    if moved_sq <= 0:
+        raise AssertionError("the parameters did not move in training")
+    return {"leaves": len(trained), "leaves_moved": n_moved, "moved_l2": moved_sq ** 0.5,
+            "max_diff_over_moved": worst, "bit_equal": equal, "tol": MESH_PARAM_TOL}
 
 
 def mesh_dryrun(cfg, state_bytes, peak, trained):
@@ -2802,42 +2850,38 @@ def mesh_compression(torch, cfg, device, params):
     gather = dist.all_gather_into_tensor
     quant = C.quantized_allreduce
 
+    times = {"quantise": 0.0, "gather": 0.0, "sum": 0.0}
+    clock = {}
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # a leaf's quantise time runs from its call to the gather, its sum time
+    # from the gather's end to the call's
     def recording_gather(out, inp, *a, **k):
         wire.append(inp.dtype)
-        return gather(out, inp, *a, **k)
+        clock["gather"] = now()
+        times["quantise"] += clock["gather"] - clock["call"]
+        r = gather(out, inp, *a, **k)
+        clock["gathered"] = now()
+        times["gather"] += clock["gathered"] - clock["gather"]
+        return r
 
-    def recording_quant(x, group, mark=None):
-        y = quant(x, group, mark)
+    def recording_quant(x, group):
+        clock["call"] = now()
+        y = quant(x, group)
+        times["sum"] += now() - clock["gathered"]
         pairs.append((x, y))
         return y
 
-    times = {"quantise": 0.0, "gather": 0.0, "sum": 0.0}
-    last = [None]
-
-    def mark(label):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        times[label] += now - last[0]
-        last[0] = now
-
     batch = make_batch(cfg, 0, TRAIN_B, PROMPT, device=device)
-    fn = C.make_compressed_grad_fn(lambda p, b: M.loss_fn(cfg, p, b)[0], mesh3, "pod",
-                                   mark=mark)
+    fn = C.make_compressed_grad_fn(lambda p, b: M.loss_fn(cfg, p, b)[0], mesh3, "pod")
     dist.all_gather_into_tensor, C.quantized_allreduce = recording_gather, recording_quant
     try:
-        torch.cuda.synchronize()
-        orig_tree = C.tree_quantized_allreduce
-
-        def timed_tree(tree, group, mark=None):
-            torch.cuda.synchronize()
-            last[0] = time.perf_counter()
-            return orig_tree(tree, group, mark)
-
-        C.tree_quantized_allreduce = timed_tree
         fn(params, batch)
     finally:
         dist.all_gather_into_tensor, C.quantized_allreduce = gather, quant
-        C.tree_quantized_allreduce = orig_tree
     worst = 0.0
     for x, y in pairs:
         xf = x.float()
@@ -2976,7 +3020,7 @@ def main() -> int:
     # 10. training
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    train, step_launches = train_phase(torch, ROOT / "build", device)
+    train, step_launches, trained = train_phase(torch, ROOT / "build", device)
     train["phase_s"] = time.perf_counter() - t0
     log(f"phase 10 passed in {train['phase_s']:.1f} s")
     q_launches = {k: sum(x[k] for x in moe["launches"]) for k in moe["launches"][0]}
@@ -2984,7 +3028,8 @@ def main() -> int:
     # 11. distribution: a device mesh of one card
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh = mesh_phase(torch, device, train, tokens_a)
+    mesh = mesh_phase(torch, device, train, trained, tokens_a)
+    del trained
     mesh["phase_s"] = time.perf_counter() - t0
     log(f"phase 11 passed in {mesh['phase_s']:.1f} s")
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.store import ModelFile, write_model
-from repro_torch.device import tensor_from_numpy, tensor_to_numpy
+from repro_torch.device import is_distributed, tensor_from_numpy, tensor_to_numpy
 
 SEP = "/"
 
@@ -76,7 +76,7 @@ def to_host(leaf) -> np.ndarray:
     array as it is."""
     if not torch.is_tensor(leaf):
         return np.asarray(leaf)
-    if type(leaf) is not torch.Tensor and hasattr(leaf, "full_tensor"):
+    if is_distributed(leaf):
         leaf = leaf.full_tensor()
     return tensor_to_numpy(leaf)
 

@@ -29,14 +29,7 @@ from repro_torch.models.partitioning import FLAT, FLAT_AXES
 
 def _hash_tokens(step: int, shape, vocab: int, salt: int = 0x9E3779B9) -> np.ndarray:
     """Counter-based stateless PRNG (splitmix-style) -> tokens in [0, vocab)."""
-    n = int(np.prod(shape))
-    idx = (np.arange(n, dtype=np.uint64) + np.uint64(step) * np.uint64(n + 1)
-           + np.uint64(salt))
-    z = (idx + np.uint64(0x9E3779B97F4A7C15))
-    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-    z = z ^ (z >> np.uint64(31))
-    return (z % np.uint64(vocab)).astype(np.int32).reshape(shape)
+    return _hash_rows(step, shape, slice(0, shape[0]), vocab, salt)
 
 
 def _hash_rows(step: int, shape, rows: slice, vocab: int, salt: int = 0x9E3779B9

@@ -40,6 +40,16 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def is_distributed(x) -> bool:
+    """True for a ``DTensor`` (the kernels reach such a tensor's local
+    shards through ``local_map``). A plain tensor answers on its type
+    alone, without importing ``torch.distributed``."""
+    if type(x) is torch.Tensor or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def is_bf16(arr: np.ndarray) -> bool:
     md = arr.dtype.metadata
     return arr.dtype.name == "bfloat16" or bool(md and md.get("trims") == "bfloat16")

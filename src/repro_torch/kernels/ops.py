@@ -32,11 +32,11 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.device import is_distributed
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
-from repro_torch.models.partitioning import is_distributed
 
 KERNEL_MODULES = (_flash, _decode, _rmsnorm)
 

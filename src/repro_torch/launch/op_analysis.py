@@ -42,6 +42,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.device import is_distributed
+
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 
@@ -107,10 +109,6 @@ def _group_size(func, args, kwargs) -> int:
     return 1
 
 
-def _is_dtensor(x) -> bool:
-    return type(x) is not torch.Tensor and hasattr(x, "_local_tensor")
-
-
 class OpAnalysis(TorchDispatchMode):
     """Accumulates per-chip dot FLOPs, traffic and collective bytes of
     every op run under it (``with OpAnalysis() as oa: step(...)``; then
@@ -132,7 +130,7 @@ class OpAnalysis(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         leaves, _ = tree_flatten((args, kwargs))
-        if any(_is_dtensor(x) for x in leaves):
+        if any(is_distributed(x) for x in leaves):
             return NotImplemented       # DTensor runs it; its local ops come back here
         try:
             out = func(*args, **kwargs)

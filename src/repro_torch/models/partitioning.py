@@ -29,6 +29,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.device import is_distributed
+
 _state = threading.local()
 
 Axes = Union[None, str, Tuple[str, ...]]
@@ -369,12 +371,3 @@ def vocab_parallel_nll(logits, labels):
     sum_exp, picked = fn(logits, labels)
     return torch.log(sum_exp) - picked
 
-
-def is_distributed(x) -> bool:
-    """True for a ``DTensor`` (the kernels reach such a tensor's local
-    shards through ``local_map``). A plain tensor answers on its type
-    alone, without importing ``torch.distributed``."""
-    if type(x) is torch.Tensor or not torch.distributed.is_available():
-        return False
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)

@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.device import is_distributed
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor      # 0-d int32, on the parameters' device
@@ -52,13 +54,9 @@ def _map(fn, tree, *rest):
             else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
-def _is_dtensor(t) -> bool:
-    return type(t) is not torch.Tensor and hasattr(t, "to_local")
-
-
 def _local(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's local shard (the tensor itself otherwise)."""
-    return t.to_local() if _is_dtensor(t) else t
+    return t.to_local() if is_distributed(t) else t
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -66,7 +64,7 @@ def global_norm(tree) -> torch.Tensor:
     DTensors each rank sums its shards' squares, a shard replicated over n
     ranks divided by n, and the mesh adds the partial sums."""
     leaves = list(_leaves(tree))
-    if not leaves or not _is_dtensor(leaves[0]):
+    if not leaves or not is_distributed(leaves[0]):
         return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = leaves[0].device_mesh

@@ -18,7 +18,7 @@ carries the int8 gather and the MAX reduction on the CPU, NCCL on cards.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -26,39 +26,33 @@ import torch.distributed as dist
 from repro_torch.optim.adamw import _leaves, _map, _sorted
 
 
-def quantized_allreduce(x: torch.Tensor, group, mark: Optional[Callable[[str], None]] = None
-                        ) -> torch.Tensor:
-    """Sum ``x`` over the ranks of ``group`` with the int8 wire format.
-    ``mark``, when given, is called with ``"quantise"``, ``"gather"`` and
-    ``"sum"`` after each phase (a timing hook)."""
-    mark = mark or (lambda label: None)
+def quantized_allreduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``group`` with the int8 wire format."""
     xf = x.float()
     absmax = xf.abs().amax()
     dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
     scale = torch.clamp(absmax / 127.0, min=1e-20)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    mark("quantise")
     n = dist.get_world_size(group)
     gathered = torch.empty(n * q.numel(), dtype=torch.int8, device=q.device)
     dist.all_gather_into_tensor(gathered, q.reshape(-1), group=group)   # int8 on the wire
-    mark("gather")
-    out = (gathered.view(n, *q.shape).float().sum(0) * scale).to(x.dtype)
-    mark("sum")
-    return out
+    return (gathered.view(n, *q.shape).float().sum(0) * scale).to(x.dtype)
 
 
-def tree_quantized_allreduce(tree: Any, group, mark=None) -> Any:
-    return _map(lambda g: quantized_allreduce(g, group, mark), tree)
+def tree_quantized_allreduce(tree: Any, group) -> Any:
+    return _map(lambda g: quantized_allreduce(g, group), tree)
 
 
-def make_compressed_grad_fn(loss_fn, mesh, pod_axis: str = "pod", mark=None):
+def make_compressed_grad_fn(loss_fn, mesh, pod_axis: str = "pod"):
     """Returns ``grad_fn(params, batch)`` whose cross-pod gradient sync uses
     the int8 path: each rank takes its pod's rows of the global ``batch``
     (dim 0 split over ``pod_axis``, in pod order), differentiates
     ``loss_fn(params, rows)`` with respect to ``params`` (plain tensors,
     the same on every rank: replicated over the pod axis), and returns the
-    mean over pods of those gradients. Ranks of one pod compute the same
-    gradient (the reference leaves the intra-pod split to GSPMD)."""
+    mean over pods of those gradients. Every rank of a pod computes the
+    pod's whole gradient on whole parameters: the values equal the
+    reference's, but where GSPMD splits that work over the pod's data and
+    model axes, here each of a pod's ranks repeats all of it."""
     names = list(mesh.mesh_dim_names)
     pdim = names.index(pod_axis)
     group = mesh.get_group(pod_axis)
@@ -70,7 +64,7 @@ def make_compressed_grad_fn(loss_fn, mesh, pod_axis: str = "pod", mark=None):
         leaf = _map(lambda t: t.detach().requires_grad_(), params)
         grads = iter(torch.autograd.grad(loss_fn(leaf, rows), list(_leaves(leaf))))
         grads = _map(lambda t: next(grads), _sorted(leaf))
-        summed = tree_quantized_allreduce(grads, group, mark)
+        summed = tree_quantized_allreduce(grads, group)
         return _map(lambda g: g / n, summed)
 
     return grad_fn
