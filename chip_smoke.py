@@ -136,12 +136,33 @@ Run from the root of a checkout. Phases, each of which raises on failure
    grouped path (bf16 and float32, gradients, a bit-equal rerun); (e) the
    int8 all-reduce over a pod axis of one on A's gradients. Printed as
    ``{"mesh": ...}``.
+12. The paper's own workload and the examples: (a) the proxy zoo of
+   Tables 3 and 4 at its published sizes (all 37 Table 3 models and
+   AlexNet-S4 and VGG16-S4, 16.0 GiB, drawn from a seed into
+   ``build/smoke_store_zoo``, removed at the end). Each model, with its file
+   dropped from the page cache before every read meant to hit the disk, is
+   cold-loaded onto the card (the no-TrIMS baseline), opened through TrIMS
+   twice (a disk hit, then a device hit on the same storage: equal
+   ``data_ptr``s, no new allocation), run through ``proxy_forward`` at
+   (1, 64) (CUDA events; VGG19's and VGG16-S4's outputs against the numpy
+   formula on the CPU) and freed (refcount 0). An 8 GiB device tier:
+   Table 4's models evict Table 3's (the resident set as LRU predicts), and
+   evicted models reopen as host hits. faas_pipeline's scenario over this
+   store at scale 1.0: two tenants, one disk load of AlexNet, a scene
+   container entitled to ResNet50 only. (b) ``examples_torch``'s four
+   scripts with their defaults on the card, each one's launches counted
+   from 0 and held to its paths (serve_llm with olmo-1b and deepseek-7b:
+   16 requests of batch 2, prompt 32, 8 new tokens; train_small through
+   its injected failure, its loss falling), each kernel first held to its
+   plain version at the examples' shapes. Printed as ``{"zoo": ...}`` and
+   ``{"examples": ...}``.
 
-The last lines are the summaries of phases 5, 6, 7, 8, 9, 10 and 11, the first
+The last lines are the summaries of phases 5 to 12, the first
 port's attention kernel times (constants, labelled ``first_port_ms``), the
 kernel table as JSON (``launches``: phase 3's counts; ``q_launches``: phase
 6's; ``m_``/``v_``/``e_``/``j_launches``: phase 9's for each model;
-``train_launches``: phase 10's a training step; ``q_*``: times at Q's
+``train_launches``: phase 10's a training step; ``examples_launches``:
+phase 12's, all examples together; ``q_*``: times at Q's
 shapes; ``family_shapes``: times at phase 9's shapes; ``train_shapes``
 and ``train_bwd``: times at phase 10's), the
 card's name and power limit as ``nvidia-smi`` prints them, and
@@ -746,14 +767,14 @@ def counts(ops) -> dict:
     return {m.__name__.rsplit(".", 1)[1]: m.launches for m in ops.KERNEL_MODULES}
 
 
-def path_launches(cfg, prefill: bool = True) -> dict:
-    """Launches one request of batch 2 implies: flash once per causal
-    self-attention layer, decode once per such layer and decode step, and
-    rmsnorm once per RMSNorm of a pass (two a layer or sublayer, one for a
-    Mamba-2 layer without an FFN, two more with QK-norm: the query and key
-    head norms; none in a layernorm model) plus the final norm, for every
-    pass that gives a token; a prefix hit runs no prefill."""
-    steps = NEW if prefill else NEW - 1
+def path_launches(cfg, prefill: bool = True, new: int = NEW) -> dict:
+    """Launches one request of ``new`` new tokens implies: flash once per
+    causal self-attention layer, decode once per such layer and decode step
+    (``new - 1``), and rmsnorm once per RMSNorm of a pass (two a layer or
+    sublayer, one for a Mamba-2 layer without an FFN, two more with QK-norm:
+    the query and key head norms; none in a layernorm model) plus the final
+    norm, for every pass that gives a token; a prefix hit runs no prefill."""
+    steps = new if prefill else new - 1
     fam = cfg.family
     if fam == "ssm":
         n_attn = 0
@@ -770,7 +791,7 @@ def path_launches(cfg, prefill: bool = True) -> dict:
         norms = (cfg.n_layers if fam == "ssm" else 2 * cfg.n_layers) + 1 \
             + (2 * n_attn if cfg.qk_norm else 0)
     return {"flash_attention": n_attn if prefill else 0,
-            "decode_attention": n_attn * (NEW - 1),
+            "decode_attention": n_attn * (new - 1),
             "rmsnorm": norms * steps}
 
 
@@ -2248,11 +2269,13 @@ def train_launches(cfg) -> dict:
     once per layer and RMSNorm twice per layer (ln1, ln2) in the forward,
     the same again when remat ``"nothing"`` recomputes each layer in the
     backward, plus the final norm once; the backward itself launches no
-    kernel (the plain VJPs); decode attention never runs."""
+    kernel (the plain VJPs); decode attention never runs. A layernorm model
+    launches no RMSNorm."""
     again = 2 if cfg.remat_policy == "nothing" else 1
     accum = max(1, cfg.grad_accum)
+    norms = (2 * cfg.n_layers * again + 1) * accum if cfg.norm_type == "rmsnorm" else 0
     return {"flash_attention": cfg.n_layers * again * accum, "decode_attention": 0,
-            "rmsnorm": (2 * cfg.n_layers * again + 1) * accum}
+            "rmsnorm": norms}
 
 
 class StepMarks:
@@ -2900,6 +2923,411 @@ def mesh_compression(torch, cfg, device, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the paper's proxy zoo (Tables 3 and 4) and the four examples
+# ---------------------------------------------------------------------------
+
+ZOO_DEVICE_CAP = 8 * GiB       # VGG16-S4 (6.26 GiB) then leaves room for nothing else
+ZOO_HOST_CAP = 20 * GiB        # holds every model (16.0 GiB): evicted ones stay warm there
+# |card - CPU| / max |h| of proxy_forward in float32 (TF32 off), and |card -
+# float64| / max |h|. Both sides round in float32 and sum each dot of up to
+# 14.5k products in their own order, through VGG16-S4's 8 layers; on an H100
+# their errors against float64 were 5.1e-5 (card) and 2.7e-5 (CPU), so the
+# two differ by at most their sum, 7.8e-5 (5.9e-5 measured)
+ZOO_FWD_TOL = 1e-4
+ZOO_CHECKED = ("VGG19", "VGG16-S4")   # proxy_forward held against the CPU
+ZOO_REOPEN = 2                 # evicted Table 3 models reopened (host hits)
+
+
+def zoo_specs(scale: float = 1.0):
+    """Table 3 at ``scale`` and Table 4's largest of each family."""
+    from repro_torch.core.proxyzoo import large_specs, small_specs
+    large = {s.name: s for s in large_specs(scale)}
+    return small_specs(scale) + [large["AlexNet-S4"], large["VGG16-S4"]]
+
+
+def drop_page_cache(path) -> None:
+    """Write ``path``'s dirty pages back and drop its pages from the page
+    cache, so that the next read of it comes from the disk."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def proxy_forward_numpy(arrays, x, dtype="float32"):
+    """The JAX package's numpy ``proxy_forward``, on the CPU, in ``dtype``
+    (the reference's float32, or float64 to measure float32's error)."""
+    import numpy as np
+    h = np.asarray(x, dtype)
+    for name in sorted(arrays):
+        if not name.endswith("_weight"):
+            continue
+        w = np.asarray(arrays[name], dtype)
+        if h.shape[-1] != w.shape[0]:
+            h = np.resize(h, (*h.shape[:-1], w.shape[0]))
+        h = np.tanh(h @ w)
+    return h
+
+
+def raw_read_s(path) -> float:
+    """Seconds to read ``path`` into one 64 MiB buffer, and nothing else."""
+    mv = memoryview(bytearray(64 << 20))
+    t0 = time.perf_counter()
+    with open(path, "rb", buffering=0) as f:
+        while f.readinto(mv):
+            pass
+    return time.perf_counter() - t0
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Median device time of ``fn`` between CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def lru_resident(order, sizes, cap):
+    """The models an LRU tier of ``cap`` bytes holds after opening ``order``
+    (each closed before the next), oldest first."""
+    resident = []
+    for name in order:
+        if name in resident:
+            resident.remove(name)
+        else:
+            while sum(sizes[n] for n in resident) + sizes[name] > cap:
+                resident.pop(0)
+        resident.append(name)
+    return resident
+
+
+def zoo_phase(torch, store_dir: Path, device):
+    """(a) The paper's zoo at its published sizes: every model cold-loaded
+    (the no-TrIMS baseline), then opened twice through TrIMS (a disk hit,
+    then a device hit on the same storage), run on the card, and freed;
+    Table 4's models evict Table 3's from the device tier, and the evicted
+    come back as host hits. Then faas_pipeline's scenario over the same
+    store at scale 1.0."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import MRM, TrimsClient, cold_load, free_model, load_model
+    from repro_torch.core.proxyzoo import populate_store, proxy_forward
+    from repro_torch.core.store import DiskStore
+
+    specs = zoo_specs()
+    disk = DiskStore(str(store_dir))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:   # numpy and writes drop the GIL
+        keys = {}
+        for r in ex.map(lambda s: populate_store(disk, [s]),
+                        sorted(specs, key=lambda s: -s.mwmf_bytes)):
+            keys.update(r)
+    gen_s = time.perf_counter() - t0
+    paths = {n: disk.path_for(k) for n, k in keys.items()}
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(drop_page_cache, paths.values()))
+    write_s = time.perf_counter() - t0
+    sizes = {n: disk.open(k).total_bytes for n, k in keys.items()}
+    total = sum(sizes.values())
+    log(f"zoo: {len(keys)} models, {total / GiB:.2f} GiB drawn and written in {write_s:.1f} s "
+        f"({gen_s:.1f} s before the flush)")
+
+    mrm = MRM(disk, device_capacity=ZOO_DEVICE_CAP, host_capacity=ZOO_HOST_CAP, device=device)
+    client = TrimsClient(mrm)
+    x = np.random.default_rng(0).standard_normal((1, 64)).astype(np.float32)
+    rows, errs, read_s = [], {}, 0.0
+    for spec in specs:
+        name, key = spec.name, keys[spec.name]
+        drop_page_cache(paths[name])
+        m = cold_load(disk, key, device=device)
+        cold = m.timings
+        read_s += cold.disk_read_s + cold.deserialize_s
+        del m
+        drop_page_cache(paths[name])
+        a0 = torch.cuda.memory_allocated()
+        m1 = load_model("repro-torch", name, trims=client)
+        a1 = torch.cuda.memory_allocated()
+        m2 = load_model("repro-torch", name, trims=client)
+        a2 = torch.cuda.memory_allocated()
+        hits = [m1.timings.tier_hit, m2.timings.tier_hit]
+        if hits != ["disk", "device"]:
+            raise AssertionError(f"zoo {name}: tier hits {hits}")
+        if any(t.device.type != device.type for t in m1.weights.values()):
+            raise AssertionError(f"zoo {name}: a weight is not on {device}")
+        if any(m2.weights[n].data_ptr() != t.data_ptr() for n, t in m1.weights.items()) \
+                or a2 != a1:
+            raise AssertionError(f"zoo {name}: the second open allocated "
+                                 f"{a2 - a1} bytes or other storage")
+        out = proxy_forward(m1.weights, x)
+        if out.device.type != device.type or out.dtype != torch.float32 or out.shape[0] != 1 \
+                or not torch.isfinite(out).all():
+            raise AssertionError(f"zoo {name}: output {out.dtype} {tuple(out.shape)} "
+                                 f"on {out.device}")
+        fwd_ms = event_ms(torch, lambda: proxy_forward(m1.weights, x))
+        if name in ZOO_CHECKED:
+            arrays = disk.open(key).read_all()
+            got, want = out.cpu().numpy(), proxy_forward_numpy(arrays, x)
+            exact = proxy_forward_numpy(arrays, x, "float64")
+            del arrays
+            rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())  # noqa: E731
+            errs[name] = {"card_vs_cpu": rel(got, want), "card_vs_f64": rel(got, exact),
+                          "cpu_vs_f64": rel(want, exact)}
+            if not max(errs[name]["card_vs_cpu"], errs[name]["card_vs_f64"]) <= ZOO_FWD_TOL:
+                raise AssertionError(f"zoo {name}: proxy_forward {errs[name]} of max |h| "
+                                     f"from the CPU's, over {ZOO_FWD_TOL}")
+        free_model(m2, client)
+        free_model(m1, client)
+        if mrm.refcount(key) != 0:
+            raise AssertionError(f"zoo {name}: refcount {mrm.refcount(key)} after the frees")
+        fwd_s = fwd_ms / 1e3
+        rows.append({"model": name, "mwmf_bytes": spec.mwmf_bytes, "file_bytes": sizes[name],
+                     "cold_disk_read_s": cold.disk_read_s,
+                     "cold_deserialize_s": cold.deserialize_s,
+                     "cold_h2d_measured_s": cold.h2d_measured_s, "cold_total_s": cold.total_s,
+                     "trims": [{"tier": t.timings.tier_hit, "total_s": t.timings.total_s}
+                               for t in (m1, m2)],
+                     "forward_ms": fwd_ms, "alloc_bytes": a1 - a0,
+                     "cold_over_warm": (cold.total_s + fwd_s) / (m2.timings.total_s + fwd_s)})
+        del m1, m2, out
+    order = [s.name for s in specs]
+    predicted = lru_resident(order, sizes, ZOO_DEVICE_CAP)
+    resident = [n for n in order if mrm.device.peek(keys[n]) is not None]
+    if sorted(resident) != sorted(predicted):
+        raise AssertionError(f"device tier holds {resident}, LRU predicts {predicted}")
+    evicted = [n for n in order[:37] if n not in predicted]
+    reopen = []
+    for name in evicted[:ZOO_REOPEN]:
+        m = load_model("repro-torch", name, trims=client)
+        reopen.append({"model": name, "tier": m.timings.tier_hit, "total_s": m.timings.total_s})
+        if m.timings.tier_hit != "host":
+            raise AssertionError(f"zoo {name}: evicted, reopened as a {m.timings.tier_hit} hit")
+        free_model(m, client)
+    st = mrm.stats()
+    for name, key in keys.items():
+        for tier in (mrm.device, mrm.host):
+            e = tier.peek(key)
+            if e is not None and e.refcount != 0:
+                raise AssertionError(f"zoo {name}: {tier.tier.name} refcount {e.refcount}")
+    # did dropping the page cache take: VGG16-S4 read raw, dropped, then warm
+    path = paths["VGG16-S4"]
+    drop_page_cache(path)
+    dropped_read = raw_read_s(path) / (sizes["VGG16-S4"] / 1e9)
+    warm_read = raw_read_s(path) / (sizes["VGG16-S4"] / 1e9)
+    cold_read = read_s / (total / 1e9)
+    fs = subprocess.run(["stat", "-f", "-c", "%T", str(store_dir)], capture_output=True,
+                        text=True, timeout=60).stdout.strip()
+    out = {"models": rows, "reopened": reopen, "device_resident": resident,
+           "evicted_from_device": mrm.device.evictions, "demotions": mrm.tiers.demotions,
+           "disk_loads": st["disk_loads"], "opens": st["opens"], "forward_err": errs,
+           "forward_tol": ZOO_FWD_TOL, "total_bytes": total, "draw_s": gen_s,
+           "write_s": write_s, "write_s_per_gb": write_s / (total / 1e9),
+           "cold_load_read_s_per_gb": cold_read, "raw_read_dropped_s_per_gb": dropped_read,
+           "raw_read_warm_s_per_gb": warm_read, "page_cache_dropped": dropped_read > 1.5 * warm_read,
+           "filesystem": fs}
+    del mrm, client
+    torch.cuda.empty_cache()
+    log(f"zoo: {len(rows)} models served cold and through TrIMS; reopened {reopen}; "
+        f"cold_load read {cold_read:.3f} s/GB; {path} read raw {dropped_read:.3f} s/GB "
+        f"dropped, {warm_read:.3f} warm ({fs})")
+    out["faas"] = zoo_faas(torch, disk, device)
+    return out
+
+
+class spying:
+    """Record each call of ``owner.attr`` (its arguments, result and
+    seconds) while in the ``with`` block."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr, self.calls = owner, attr, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.owner, self.attr)
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            r = orig(*a, **k)
+            self.calls.append((a, r, time.perf_counter() - t0))
+            return r
+
+        setattr(self.owner, self.attr, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.orig)
+
+
+def example(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def zoo_faas(torch, disk, device):
+    """faas_pipeline's scenario over the zoo's store (scale 1.0): two
+    tenants share AlexNet (one disk load), the scene container may load
+    ResNet50 only; per-invocation seconds and tier hits."""
+    from repro_torch.core import ModelKey, faas
+    with spying(faas.FaaSPlatform, "invoke") as invokes, \
+            spying(faas.Container, "load_model") as loads:
+        r = example("faas_pipeline").run(device=str(device), disk=disk)
+    plat = r["platform"]
+    alex = ModelKey("repro-torch", "AlexNet", "1")
+    tiers = [(a[0].fn_name, a[2], m.timings.tier_hit, m.nbytes) for a, m, _ in loads]
+    ptrs = [{n: t.data_ptr() for n, t in m.weights.items()}
+            for (c, fw, nm, *_), m, _ in loads if nm == "AlexNet"]
+    if r["stats"]["disk_loads"] != 3 or sum(1 for t in tiers if t[1] == "AlexNet") != 2 \
+            or [t[2] for t in tiers if t[1] == "AlexNet"] != ["disk", "device"] \
+            or len(ptrs) != 2 or ptrs[0] != ptrs[1]:
+        raise AssertionError(f"FaaS: disk loads {r['stats']['disk_loads']}, loads {tiers}")
+    if tiers[0][3] != disk.open(alex).total_bytes:
+        raise AssertionError(f"FaaS: AlexNet of {tiers[0][3]} bytes")
+    try:
+        plat.containers["scene"].load_model("repro-torch", "AlexNet")
+        raise AssertionError("FaaS: the scene container loaded AlexNet")
+    except faas.IsolationError:
+        pass
+    for c in plat.containers.values():
+        c.teardown()
+    if r["mrm"].refcount(alex) != 0:
+        raise AssertionError("FaaS: AlexNet referenced after teardown")
+    out = {"output": r["output"], "disk_loads": r["stats"]["disk_loads"],
+           "opens": r["stats"]["opens"], "alexnet_refcount": r["alexnet_refcount"],
+           "alexnet_bytes": tiers[0][3],
+           "invocations": [{"function": a[1], "s": dt} for a, _, dt in invokes],
+           "loads": [{"function": f, "model": n, "tier": t, "s": dt}
+                     for (f, n, t, _), (_, _, dt) in zip(tiers, loads)]}
+    del r, plat
+    torch.cuda.empty_cache()
+    return out
+
+
+def example_kernel_checks(torch):
+    """Each kernel at the shapes the examples give it, against its plain
+    version (``check_close``): reduced olmo and deepseek (4 heads of 16,
+    d_model 64; prompt 32, a cache of 40) and train_small's olmo (4 heads
+    of 32, batch 4 x 64)."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import rmsnorm as kr
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for (b, s, h, d) in ((2, 32, 4, 16), (4, 64, 4, 32)):
+            q, k, v = (rnd(b, s, h, d, dtype=dtype) for _ in range(3))
+            e = check_close(torch, "flash", kf.flash_attention(q, k, v, causal=True),
+                            kf.flash_attention_plain(q, k, v, causal=True), dtype, (b, s, h, d))
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+        q = rnd(2, 4, 16, dtype=dtype)
+        kc, vc = rnd(2, 40, 4, 16, dtype=dtype), rnd(2, 40, 4, 16, dtype=dtype)
+        for lens in ((33, 33), (36, 39)):
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            e = check_close(torch, "decode", kd.decode_attention(q, kc, vc, kv_len),
+                            kd.decode_attention_plain(q, kc, vc, kv_len), dtype, lens)
+            errs["decode_attention"] = max(errs["decode_attention"], e)
+        for shape in ((2, 32, 64), (2, 1, 64)):
+            x, sc = rnd(*shape, dtype=dtype), rnd(64, dtype=dtype) + 1
+            e = check_close(torch, "rmsnorm", kr.rmsnorm(x, sc, 1e-6),
+                            kr.rmsnorm_plain(x, sc, 1e-6), dtype, shape)
+            errs["rmsnorm"] = max(errs["rmsnorm"], e)
+    return errs
+
+
+def examples_phase(torch, work: Path, device):
+    """(b) The four examples on the card, each with its defaults (stores
+    and checkpoints under ``work``), launches counted from 0 for each and
+    held to its paths: quickstart and faas_pipeline none; serve_llm 16
+    requests (4 cold, 4 through TrIMS, 8 on the worker pool) of batch 2,
+    prompt 32, 8 new tokens; train_small's steps and one request."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DiskStore
+    from repro_torch.kernels import ops
+
+    errs = example_kernel_checks(torch)
+    none = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
+    runs, launches, want = {}, {}, {}
+
+    ops.reset_launches()
+    r = example("quickstart").run(device=str(device), disk=DiskStore(str(work / "quickstart")))
+    launches["quickstart"], want["quickstart"] = counts(ops), none
+    runs["quickstart"] = {"tiers": [m.timings.tier_hit for m in r["trims"]], "stats": r["stats"],
+                          "cold_s": r["cold"].timings.total_s,
+                          "trims_s": [m.timings.total_s for m in r["trims"]]}
+    if runs["quickstart"]["tiers"] != ["disk", "device"]:
+        raise AssertionError(f"quickstart: tier hits {runs['quickstart']['tiers']}")
+    for m in r["trims"]:
+        r["client"].close(m.handle)
+    del r
+
+    ops.reset_launches()
+    r = example("faas_pipeline").run(device=str(device), disk=DiskStore(str(work / "faas")))
+    launches["faas_pipeline"], want["faas_pipeline"] = counts(ops), none
+    runs["faas_pipeline"] = {"output": r["output"], "disk_loads": r["stats"]["disk_loads"],
+                             "alexnet_refcount": r["alexnet_refcount"]}
+    if (r["stats"]["disk_loads"], r["alexnet_refcount"]) != (3, 2):
+        raise AssertionError(f"faas_pipeline: {runs['faas_pipeline']}")
+    for c in r["platform"].containers.values():
+        c.teardown()
+    del r
+
+    for arch in ("olmo-1b", "deepseek-7b"):
+        ops.reset_launches()
+        r = example("serve_llm").run(arch=arch, device=str(device),
+                                     disk=DiskStore(str(work / "serve")))
+        tag = f"serve_llm {arch}"
+        launches[tag] = counts(ops)
+        n = sum(len(v) for v in r["served"].values()) + len(r["concurrent"])
+        one = path_launches(get_config(arch).reduced(), new=8)
+        want[tag] = {k: n * v for k, v in one.items()}
+        tiers = {k: [st.tier_hit for _, st in v] for k, v in r["served"].items()}
+        runs[tag] = {"tiers": tiers, "requests": n, "concurrent_ok": r["concurrent_ok"],
+                     "disk_loads": r["disk_loads"],
+                     "tokens": r["served"]["TrIMS"][0][0][0][:8].tolist()}
+        first = r["served"]["baseline(cold)"][0][0]
+        if tiers["TrIMS"] != ["disk"] + ["device"] * 3 or r["concurrent_ok"] != 8 \
+                or r["disk_loads"] != 1 or not all(
+                    (out == first).all() for v in r["served"].values() for out, _ in v) \
+                or not all((q.result == first).all() for q in r["concurrent"]):
+            raise AssertionError(f"{tag}: {runs[tag]}")
+        del r
+
+    ops.reset_launches()
+    r = example("train_small").run(device=str(device), root=str(work / "train"))
+    launches["train_small"] = counts(ops)
+    steps = len(r["history"])
+    step, serve = train_launches(r["cfg"]), path_launches(r["cfg"], new=8)
+    want["train_small"] = {k: steps * step[k] + serve[k] for k in step}
+    runs["train_small"] = {"restarts": r["restarts"], "steps": steps, "first_loss": r["losses"][0],
+                           "last_loss": r["losses"][-1], "tier": r["stats"].tier_hit,
+                           "tokens": r["tokens"][0].tolist()}
+    if r["restarts"] != 1 or steps != 60 or not r["losses"][-1] < r["losses"][0]:
+        raise AssertionError(f"train_small: {runs['train_small']}")
+    del r
+    torch.cuda.empty_cache()
+
+    if launches != want:
+        raise AssertionError(f"examples' launches {launches}, paths imply {want}")
+    return {"runs": runs, "launches": launches, "kernel_max_abs_err": errs}
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -3033,12 +3461,31 @@ def main() -> int:
     mesh["phase_s"] = time.perf_counter() - t0
     log(f"phase 11 passed in {mesh['phase_s']:.1f} s")
 
+    # 12. the paper's proxy zoo at its published sizes, and the four examples
+    zoo_dir, ex_dir = ROOT / "build" / "smoke_store_zoo", ROOT / "build" / "smoke_examples"
+    for d in (zoo_dir, ex_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        zoo = zoo_phase(torch, zoo_dir, device)
+        zoo["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        examples = examples_phase(torch, ex_dir, device)
+        examples["phase_s"] = time.perf_counter() - t0
+        log(f"phase 12 passed in {zoo['phase_s'] + examples['phase_s']:.1f} s "
+            f"(zoo {zoo['phase_s']:.1f} s)")
+    finally:
+        for d in (zoo_dir, ex_dir):
+            shutil.rmtree(d, ignore_errors=True)
+
     table = []
     for name, (source, replaces) in SOURCES.items():
         k = kern[name]
         table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "launches": launches[name], "q_launches": q_launches[name],
                       "train_launches": step_launches[name],
+                      "examples_launches": sum(x[name] for x in examples["launches"].values()),
                       **{m.lower() + "_launches": fam_launches[m][name] for m in fam_launches},
                       "max_abs_err": k["max_abs_err"],
                       "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -3055,6 +3502,7 @@ def main() -> int:
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
              "stream": stream, "moe": moe, "cloud": cloud, "ipc": ipc, "faas": faas,
              "cluster": cluster, "families": families, "train": train, "mesh": mesh,
+             "zoo": zoo, "examples": examples,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"moe": moe}))
@@ -3065,6 +3513,8 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"train": train}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"zoo": zoo}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"first_port_ms": FIRST_PORT_MS}))
     print(json.dumps({"kernels": table}))
     print(card)

@@ -643,3 +643,42 @@ def test_mesh_reaches_the_kernels_on_local_shards(cuda_device):
     assert loss == want_loss
     assert counts == want_counts
     assert all(c > 0 for c in counts[0]) and counts[1][0] > 0 and counts[1][2] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_kernels_at_the_example_shapes(cuda_device, name):
+    """The shapes ``examples_torch`` gives the kernels: reduced olmo and
+    deepseek (4 heads of 16, d_model 64, prompt 32, a cache of 40) and
+    train_small's olmo (4 heads of 32, batch 4 x 64)."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    dt = DTYPES[name]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(dt)
+
+    for B, S, H, D in ((2, 32, 4, 16), (4, 64, 4, 32)):
+        q, k, v = rnd(B, S, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+        _close(tflash.flash_attention(q, k, v, causal=True),
+               tflash.flash_attention_plain(q, k, v, causal=True), name)
+    q, k, v = rnd(2, 4, 16), rnd(2, 40, 4, 16), rnd(2, 40, 4, 16)
+    kv_len = torch.tensor([33, 39], dtype=torch.int32, device=cuda_device)
+    _close(tdecode.decode_attention(q, k, v, kv_len),
+           tdecode.decode_attention_plain(q, k, v, kv_len), name)
+    for shape in ((2, 32, 64), (2, 1, 64)):
+        x, sc = rnd(*shape), rnd(64) + 1
+        _close(trms.rmsnorm(x, sc, 1e-6), trms.rmsnorm_plain(x, sc, 1e-6), name)
+
+
+@pytest.mark.cuda
+def test_proxy_forward_on_the_card_equals_numpy(cuda_device):
+    import numpy as np
+    from repro_torch.core.proxyzoo import build_proxy_tensors, large_specs, proxy_forward
+    spec = {s.name: s for s in large_specs(0.01)}["VGG16-S4"]
+    w = build_proxy_tensors(spec)
+    x = np.random.default_rng(0).standard_normal((3, 64)).astype(np.float32)
+    got = proxy_forward({n: torch.from_numpy(a).to(cuda_device) for n, a in w.items()}, x)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    want = proxy_forward(w, x).numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())

@@ -14,7 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "msgpack", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -44,28 +44,73 @@ def test_port_files_exist():
     assert {f"src/repro_torch/{m}.py" for m in (
         "launch/mesh", "launch/sharding", "launch/specs", "launch/op_analysis",
         "launch/dryrun", "models/partitioning", "runtime/compression")} <= names
+    assert "src/repro_torch/core/proxyzoo.py" in names
+    assert {f"examples_torch/{m}.py" for m in (
+        "quickstart", "faas_pipeline", "serve_llm", "train_small")} <= names
 
 
 def _exported(path: Path):
-    """Names a package ``__init__`` re-exports, by the module each comes from."""
+    """Names a package ``__init__`` re-exports or defines at its top level,
+    by the module each comes from (``None`` for a name defined there)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    return {a.asname or a.name: node.module for node in tree.body
-            if isinstance(node, ast.ImportFrom) for a in node.names}
+    names = {}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update({a.asname or a.name: node.module for a in node.names})
+        elif isinstance(node, ast.Assign):
+            names.update({t.id: None for t in node.targets if isinstance(t, ast.Name)})
+    return names
+
+
+REF_SRC, PORT_SRC = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+# modules of the JAX package that the port replaces by design: it has no JAX
+# to shim, and it counts a step's operations from the ops it runs
+# (launch/op_analysis.py), not from HLO text
+REPLACED = {"jax_compat.py": None, "launch/hlo_analysis.py": "launch/op_analysis.py"}
+
+
+@pytest.mark.parametrize("init", sorted(REF_SRC.rglob("__init__.py")),
+                         ids=lambda p: str(p.relative_to(REF_SRC)))
+def test_package_exports_match_reference(init):
+    """Each package ``__init__`` of the port exports every name its JAX
+    counterpart does (read from both files' ASTs, so neither package is
+    imported)."""
+    rel = init.relative_to(REF_SRC)
+    port = _exported(PORT_SRC / rel)
+    assert set(_exported(init)) - set(port) == set(), rel
+
+
+def test_every_module_has_a_counterpart():
+    ref = {str(p.relative_to(REF_SRC)) for p in REF_SRC.rglob("*.py")}
+    port = {str(p.relative_to(PORT_SRC)) for p in PORT_SRC.rglob("*.py")}
+    assert ref - port == set(REPLACED)
+    assert {v for v in REPLACED.values() if v} <= port
+
+
+def test_package_names_import_without_a_build():
+    """The names the JAX package's ``__init__``s give are importable from
+    the port's, and importing the kernels package builds nothing."""
+    code = ("import repro_torch; from repro_torch.kernels import _lib, ops, ref; "
+            "from repro_torch.runtime import (make_compressed_grad_fn, "
+            "quantized_allreduce, tree_quantized_allreduce); "
+            "assert repro_torch.__version__ == '1.0.0', repro_torch.__version__; "
+            "assert _lib._lib is None, 'importing the kernels built the library'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_core_exports_match_reference():
-    """The port's ``core`` exports every name the JAX package's ``core``
-    does (read from both files' ASTs, so neither package is imported),
-    apart from the proxy zoo's, which the port does not have yet; neither
-    re-exports ``noded``, the daemon's ``python -m`` entry point."""
-    ref = _exported(ROOT / "src" / "repro" / "core" / "__init__.py")
-    port = _exported(ROOT / "src" / "repro_torch" / "core" / "__init__.py")
-    want = {n for n, mod in ref.items() if mod != "repro.core.proxyzoo"}
-    assert want - set(port) == set()
+    """Neither ``core`` re-exports ``noded``, the daemon's ``python -m``
+    entry point, and neither exports the proxy zoo."""
+    ref = _exported(REF_SRC / "core" / "__init__.py")
+    port = _exported(PORT_SRC / "core" / "__init__.py")
+    assert set(ref) - set(port) == set()
     assert {"Cluster", "ClusterNode", "HashRing", "PlacementPlanner",
             "FleetSim"} <= set(port)
     for exported in (ref, port):
-        assert not any(mod.endswith(".noded") for mod in exported.values())
+        assert not any(mod.endswith((".noded", ".proxyzoo")) for mod in exported.values())
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -81,7 +126,7 @@ def test_serving_import_leaves_jax_out():
             "repro_torch.core.shm_ipc, repro_torch.core.transport, repro_torch.core.faas, "
             "repro_torch.core.objectstore, repro_torch.core.cluster, "
             "repro_torch.core.directory, repro_torch.core.placement, "
-            "repro_torch.core.noded, repro_torch.core.fleetsim; "
+            "repro_torch.core.noded, repro_torch.core.fleetsim, repro_torch.core.proxyzoo; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'msgpack', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
