@@ -1,0 +1,6 @@
+"""The decode attention kernel's share of its roofline over the window."""
+from trimsbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "decode_split_kernel")

@@ -1,0 +1,6 @@
+"""The prefill attention kernel's share of its roofline over the window."""
+from trimsbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "flash_fwd")
