@@ -50,6 +50,7 @@ from repro_torch.core.store import CloudStore, DiskStore, ModelFile, _np_dtype
 from repro_torch.core.tenant import RequestContext
 from repro_torch.device import (numpy_dtype, resolve_device, synchronize,
                                 tensor_from_numpy, tensor_into_numpy, tensor_to_numpy)
+from repro_torch.runtime import trace
 
 # write-back queue shutdown sentinel (MRM.shutdown)
 _WB_SENTINEL = object()
@@ -95,11 +96,6 @@ class OpenTimings:
     # in-process (loopback) transfers, whose link times stay modeled.
     wire_s: float = 0.0
     wire_bytes: int = 0
-
-    def modeled_total(self) -> float:
-        return (self.cloud_s + self.peer_s + self.gather_s
-                + self.disk_read_s + self.deserialize_s + self.h2d_modeled_s
-                + self.share_overhead_s)
 
 
 @dataclass
@@ -1571,55 +1567,56 @@ class MRM:
         """HOST hit -> device: chunked H2D (double-buffered when pipelined)."""
         nbytes = host_entry.nbytes
         need = nbytes + activation_bytes
-        # reserve capacity atomically (make_room + insert under one lock):
-        # concurrent stages of DIFFERENT models must not steal each other's
-        # freed room between eviction and insertion; victims demote to HOST
-        # after the lock drops (D2H copy must not stall other opens)
-        with self.device.lock:
-            evicted = self.tiers.make_room(Tier.DEVICE, need)
-            entry = self.device.insert(key, nbytes, payload=None)
-            entry.pinned = True
-
-        hm: HostModel = host_entry.payload
-        weights: Dict[str, object] = {}
-        try:
-            demoted = self.tiers.demote_evicted(evicted)
-            timings.demote_s = sum(self.hw.d2h_time(v.nbytes) for v in demoted)
-            if demoted:
-                with self._evict_lock:
-                    self._demoted_keys.update(v.key for v in demoted)
-            if self.pipelined_staging:
-                chunks = plan_chunks([(n, a.nbytes) for n, a in hm.arrays.items()],
-                                     self.staging_chunk_bytes)
-
-                def prep_chunk(names):
-                    return [(n, hm.arrays[n]) for n in names]
-
-                def put_chunk(items):
-                    if fut is not None:
-                        fut.stage = "h2d"
-                    for n, a in items:
-                        weights[n] = self.device_put_fn(a)
-                    synchronize(self.device_name)  # busy time = finished copies
-                    return [n for n, _ in items]
-
-                _, report = run_pipeline(chunks, [("host_prep", prep_chunk),
-                                                  ("h2d", put_chunk)],
-                                         depth=self.pipeline_depth)
-                timings.h2d_measured_s = report.stage("h2d").busy_s
-                timings.chunks = max(timings.chunks, report.n_chunks)
-                timings.stage_overlap_s += report.overlap_s()
-            else:
-                t0 = time.perf_counter()
-                for n, a in hm.arrays.items():
-                    weights[n] = self.device_put_fn(a)
-                synchronize(self.device_name)
-                timings.h2d_measured_s = time.perf_counter() - t0
-        except BaseException:
+        with trace.span("mrm.stage", bytes=nbytes):
+            # reserve capacity atomically (make_room + insert under one lock):
+            # concurrent stages of DIFFERENT models must not steal each other's
+            # freed room between eviction and insertion; victims demote to HOST
+            # after the lock drops (D2H copy must not stall other opens)
             with self.device.lock:
-                if self.device.peek(key) is entry:
-                    self.device.remove(key)
-            raise
+                evicted = self.tiers.make_room(Tier.DEVICE, need)
+                entry = self.device.insert(key, nbytes, payload=None)
+                entry.pinned = True
+
+            hm: HostModel = host_entry.payload
+            weights: Dict[str, object] = {}
+            try:
+                demoted = self.tiers.demote_evicted(evicted)
+                timings.demote_s = sum(self.hw.d2h_time(v.nbytes) for v in demoted)
+                if demoted:
+                    with self._evict_lock:
+                        self._demoted_keys.update(v.key for v in demoted)
+                if self.pipelined_staging:
+                    chunks = plan_chunks([(n, a.nbytes) for n, a in hm.arrays.items()],
+                                         self.staging_chunk_bytes)
+
+                    def prep_chunk(names):
+                        return [(n, hm.arrays[n]) for n in names]
+
+                    def put_chunk(items):
+                        if fut is not None:
+                            fut.stage = "h2d"
+                        for n, a in items:
+                            weights[n] = self.device_put_fn(a)
+                        synchronize(self.device_name)  # busy time = finished copies
+                        return [n for n, _ in items]
+
+                    _, report = run_pipeline(chunks, [("host_prep", prep_chunk),
+                                                      ("h2d", put_chunk)],
+                                             depth=self.pipeline_depth)
+                    timings.h2d_measured_s = report.stage("h2d").busy_s
+                    timings.chunks = max(timings.chunks, report.n_chunks)
+                    timings.stage_overlap_s += report.overlap_s()
+                else:
+                    t0 = time.perf_counter()
+                    for n, a in hm.arrays.items():
+                        weights[n] = self.device_put_fn(a)
+                    synchronize(self.device_name)
+                    timings.h2d_measured_s = time.perf_counter() - t0
+            except BaseException:
+                with self.device.lock:
+                    if self.device.peek(key) is entry:
+                        self.device.remove(key)
+                raise
         self._record_staging_models(timings, nbytes)
         self._maybe_simulate_h2d(timings)
         with self._lock:

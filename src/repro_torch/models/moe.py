@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import partitioning as part
 from repro_torch.models.layers import dense_init
+from repro_torch.runtime import trace
 
 Params = Dict[str, torch.Tensor]
 
@@ -92,9 +93,10 @@ def router_topk(cfg: ModelConfig, p: Params, x2d: torch.Tensor
 
 def _expert_ffn_batched(p: Params, xe: torch.Tensor, dtype) -> torch.Tensor:
     """xe: (E, C, D) -> (E, C, D) via per-expert SwiGLU."""
-    g = F.silu(torch.bmm(xe, p["w_gate"].to(dtype)))
-    u = torch.bmm(xe, p["w_up"].to(dtype))
-    return torch.bmm(g * u, p["w_down"].to(dtype))
+    with trace.span("moe.experts"):
+        g = F.silu(torch.bmm(xe, p["w_gate"].to(dtype)))
+        u = torch.bmm(xe, p["w_up"].to(dtype))
+        return torch.bmm(g * u, p["w_down"].to(dtype))
 
 
 def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -136,18 +138,19 @@ def moe_capacity(cfg: ModelConfig, p: Params, x2d: torch.Tensor
     topw, topi, aux = router_topk(cfg, p, x2d)
 
     C = _capacity(T, cfg)
-    slot = _slot_positions(topi.reshape(-1), E, C)                   # (T*K,)
-    tok_flat = torch.arange(T, device=x2d.device).repeat_interleave(K)
-    # token ids and weights into slots; duplicates land only in the trash
-    # slot E*C, which is cut off
-    slot_tok = torch.full((E * C + 1,), T, dtype=torch.long, device=x2d.device)
-    slot_tok[slot] = tok_flat
-    slot_w = torch.zeros(E * C + 1, dtype=dt, device=x2d.device)
-    slot_w[slot] = topw.reshape(-1)
-    slot_tok, slot_w = slot_tok[:-1], slot_w[:-1]
+    with trace.span("moe.dispatch", rows=T):
+        slot = _slot_positions(topi.reshape(-1), E, C)               # (T*K,)
+        tok_flat = torch.arange(T, device=x2d.device).repeat_interleave(K)
+        # token ids and weights into slots; duplicates land only in the trash
+        # slot E*C, which is cut off
+        slot_tok = torch.full((E * C + 1,), T, dtype=torch.long, device=x2d.device)
+        slot_tok[slot] = tok_flat
+        slot_w = torch.zeros(E * C + 1, dtype=dt, device=x2d.device)
+        slot_w[slot] = topw.reshape(-1)
+        slot_tok, slot_w = slot_tok[:-1], slot_w[:-1]
 
-    x_pad = torch.cat([x2d, x2d.new_zeros(1, D)])
-    xe = x_pad[slot_tok].reshape(E, C, D)                            # empty slot -> zero row
+        x_pad = torch.cat([x2d, x2d.new_zeros(1, D)])
+        xe = x_pad[slot_tok].reshape(E, C, D)                        # empty slot -> zero row
     ye = _expert_ffn_batched(p, xe, dt).reshape(E * C, D)
     ye = ye * slot_w[:, None]
     # each assignment reads its slot's row; a dropped one reads the zero row

@@ -39,6 +39,7 @@ from repro_torch.core.mrm import MRM, ModelKey
 from repro_torch.core.store import DiskStore
 from repro_torch.device import resolve_device, synchronize, tensor_from_numpy
 from repro_torch.models import model as M
+from repro_torch.runtime import trace
 from repro_torch.serving.prefix_cache import PrefixKVStore, prompt_key
 from repro_torch.serving.weights_io import flat_to_params_like, params_to_flat
 
@@ -78,7 +79,6 @@ class RequestStats:
     compile_s: float
     compute_s: float
     total_s: float
-    modeled_load_s: float = 0.0
     ttft_s: float = 0.0          # submit -> first token materialized
     streamed: bool = False       # served via the layer-streaming path (§9)
 
@@ -126,21 +126,23 @@ class InferenceEngine:
                    ) -> Tuple[ServableModel, float]:
         """Resolve weights (TrIMS or cold) -> params tree. Returns
         (model, load_seconds)."""
-        key = ModelKey(self.framework, name, version)
-        cfg = self._cfg_cache.get((name, version)) or self._config_for(key)
-        self._cfg_cache[(name, version)] = cfg
-        t0 = time.perf_counter()
-        if self.use_trims:
-            h = self.trims.open(self.framework, name, version)
-            loaded = LoadedModel(key, h.weights, h.nbytes, h.timings,
-                                 via_trims=True, handle=h)
-        else:
-            loaded = cold_load(self.disk, key, device=self.device)
-        load_s = time.perf_counter() - t0
-        template = M.init_params(cfg, device="meta")
-        params = flat_to_params_like(
-            template, loaded.weights,
-            convert=lambda v: v if torch.is_tensor(v) else tensor_from_numpy(v, self.device))
+        with trace.span("engine.load") as sp:
+            key = ModelKey(self.framework, name, version)
+            cfg = self._cfg_cache.get((name, version)) or self._config_for(key)
+            self._cfg_cache[(name, version)] = cfg
+            t0 = time.perf_counter()
+            if self.use_trims:
+                h = self.trims.open(self.framework, name, version)
+                loaded = LoadedModel(key, h.weights, h.nbytes, h.timings,
+                                     via_trims=True, handle=h)
+            else:
+                loaded = cold_load(self.disk, key, device=self.device)
+            load_s = time.perf_counter() - t0
+            sp.set(tier=loaded.timings.tier_hit)
+            template = M.init_params(cfg, device="meta")
+            params = flat_to_params_like(
+                template, loaded.weights,
+                convert=lambda v: v if torch.is_tensor(v) else tensor_from_numpy(v, self.device))
         return ServableModel(key, cfg, params, loaded, loaded.nbytes), load_s
 
     def release(self, sm: ServableModel):
@@ -243,11 +245,12 @@ class InferenceEngine:
         With ``streaming`` on, cold DENSE/MoE loads are served layer by layer
         against a partial open (same tokens, earlier first token); anything
         else falls through to the batch path below."""
-        if self.streaming:
-            r = self._generate_streaming(name, tokens, max_new_tokens, version)
-            if r is not None:
-                return r
-        return self._generate_batch(name, tokens, max_new_tokens, version)
+        with trace.request(), trace.span("engine.request"):
+            if self.streaming:
+                r = self._generate_streaming(name, tokens, max_new_tokens, version)
+                if r is not None:
+                    return r
+            return self._generate_batch(name, tokens, max_new_tokens, version)
 
     def _generate_batch(self, name: str, tokens: np.ndarray,
                         max_new_tokens: int, version: str
@@ -285,10 +288,11 @@ class InferenceEngine:
             ttft_s = time.perf_counter() - t_start
             out = [tok]
             for i in range(max_new_tokens - 1):
-                (logits, cache), dc = self._run_exe(
-                    sig_d, exe_d, sm.params, cache, tok, S + i)
+                with trace.span("engine.decode_step", batch=B):
+                    (logits, cache), dc = self._run_exe(
+                        sig_d, exe_d, sm.params, cache, tok, S + i)
+                    tok = logits.argmax(-1)
                 extra_c += dc
-                tok = logits.argmax(-1)
                 out.append(tok)
             result = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
             compute_s = max(0.0, time.perf_counter() - t0 - extra_c)
@@ -300,8 +304,7 @@ class InferenceEngine:
             model=name, cold=not sm.loaded.via_trims or tm.tier_hit != "device",
             tier_hit=tm.tier_hit, model_load_s=load_s,
             compile_s=extra_c, compute_s=compute_s,
-            total_s=time.perf_counter() - t_start,
-            modeled_load_s=tm.modeled_total(), ttft_s=ttft_s)
+            total_s=time.perf_counter() - t_start, ttft_s=ttft_s)
         with self._lock:
             self.stats.append(st)
         return result, st
@@ -444,8 +447,7 @@ class InferenceEngine:
             model=name, cold=True, tier_hit=tm.tier_hit,
             model_load_s=blocked_s,   # critical-path wait, not wall staging
             compile_s=extra_c, compute_s=compute_s,
-            total_s=time.perf_counter() - t_start,
-            modeled_load_s=tm.modeled_total(), ttft_s=ttft_s, streamed=True)
+            total_s=time.perf_counter() - t_start, ttft_s=ttft_s, streamed=True)
         with self._lock:
             self.stats.append(st)
         return result, st
@@ -464,6 +466,7 @@ class Request:
     done: Optional[threading.Event] = None
     result: Any = None
     stats: Optional[RequestStats] = None
+    queued_ns: int = 0          # time.time_ns() at submit, while spans are on
 
 
 class ServingWorkers:
@@ -485,6 +488,8 @@ class ServingWorkers:
 
     def submit(self, req: Request) -> Request:
         req.done = threading.Event()
+        if trace.enabled():
+            req.queued_ns = time.time_ns()
         self.q.put(req)
         return req
 
@@ -514,6 +519,7 @@ class ServingWorkers:
             req = self.q.get()
             if req is None:
                 return
+            dequeued_ns = time.time_ns() if req.queued_ns else 0
             if self.lookahead_prefetch:
                 eng = self.engine
                 for nxt in self._peek_next_models(self.lookahead):
@@ -527,8 +533,11 @@ class ServingWorkers:
                     # request's load+compute (async MRM load, zero refs)
                     eng.prefetch(nxt)
             try:
-                req.result, req.stats = self.engine.generate(
-                    req.model, req.tokens, req.max_new)
+                with trace.request():
+                    if dequeued_ns:
+                        trace.record("workers.queue", req.queued_ns, dequeued_ns)
+                    req.result, req.stats = self.engine.generate(
+                        req.model, req.tokens, req.max_new)
             except Exception as e:  # noqa: BLE001
                 req.result = e
             finally:

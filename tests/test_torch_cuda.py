@@ -682,3 +682,59 @@ def test_proxy_forward_on_the_card_equals_numpy(cuda_device):
     want = proxy_forward(w, x).numpy()
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_span_joins_the_profiler_trace_by_thread_and_clock(cuda_device):
+    """A span's thread id is the one the profiler gives the CUDA runtime
+    calls of its thread, and its clock the one it stamps them with: the
+    sleep kernel's launch carries the span's thread id and lies inside it,
+    and the kernel lies inside it too. Each span leaves 5 ms of host time
+    before the launch and after the synchronise, room for the offset
+    between the card's timestamps and the host's, which is printed."""
+    import threading
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import trace
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    rec = trace.Recorder()
+
+    def work():
+        with rec.span("sleep"):
+            time.sleep(0.005)
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    rec.enable()
+    work()
+    th = threading.Thread(target=work)
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    rec.disable()
+    prof.stop()
+    records = rec.drain()
+    assert len(records) == 2 and records[0][3] != records[1][3]
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = list(prof.profiler.kineto_results.events())
+    kernels = [e for e in evs if e.device_type() == cuda and "spin_kernel" in e.name()]
+    launches = {e.correlation_id(): e for e in evs
+                if e.device_type() != cuda and e.name().startswith("cudaLaunchKernel")}
+    assert len(kernels) == 2
+    for (_, s, e, tid, *_), k in zip(sorted(records, key=lambda r: r[1]),
+                                     sorted(kernels, key=lambda k: k.start_ns())):
+        call = launches[k.correlation_id()]
+        assert call.device_resource_id() == tid
+        assert s <= call.start_ns() and call.start_ns() + call.duration_ns() <= e
+        k_end = k.start_ns() + k.duration_ns()
+        print(f"span thread {tid}: kernel start - launch start "
+              f"{(k.start_ns() - call.start_ns()) / 1e6:.3f} ms, span end - kernel end "
+              f"{(e - k_end) / 1e6:.3f} ms, kernel {k.duration_ns() / 1e6:.3f} ms")
+        assert s <= k.start_ns() and k_end <= e
