@@ -24,8 +24,11 @@ Run from the root of a checkout. Phases, each of which raises on failure
    weights from a seed, bf16) is published three times into a store and
    served through the MRM and the inference engine with device and host
    capacities that force eviction and D2H demotion, then by two concurrent
-   workers that must share one device copy. Kernel launch counts are set to
-   0 before this phase and read after it.
+   workers that must share one device copy. Its kernel launches are read
+   from a device trace of the phase (``launched``), as are those of every
+   later phase that serves through the engine: the engine replays a DENSE or
+   MoE model's decode steps from a CUDA graph, whose kernels pass no
+   wrapper's counter.
 4. End to end: model A's prefill logits on the card (kernels, bf16) against
    the port's plain path on the CPU (float32 weights upcast from the same
    file).
@@ -171,6 +174,7 @@ card's name and power limit as ``nvidia-smi`` prints them, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -767,6 +771,38 @@ def counts(ops) -> dict:
     return {m.__name__.rsplit(".", 1)[1]: m.launches for m in ops.KERNEL_MODULES}
 
 
+# each kernel module's kernels, as a device trace names them
+KERNEL_NAMES = {"flash_attention": ("flash_fwd_tc", "flash_fwd_f32"),
+                "decode_attention": ("decode_split_kernel",),
+                "rmsnorm": ("rmsnorm_kernel",)}
+
+
+@contextlib.contextmanager
+def launched(torch):
+    """Each kernel's launches inside the block, read from a device trace of
+    it: the engine replays a DENSE or MoE model's decode steps from a CUDA
+    graph, whose kernels run without passing the wrappers that ``counts``
+    reads. Yields a dict, filled when the block ends. A trace on the H100
+    has lost the first device activity of its window (the first ~40
+    kernels and copies of a request that began 10 ms in), so the block
+    starts after 256 throwaway kernels, a sync and 50 ms."""
+    from torch.profiler import ProfilerActivity, profile
+    got = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x = torch.zeros(1024, device="cuda")
+        for _ in range(256):
+            x.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        yield got
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    got.update({k: sum(any(p in n for p in pats) for n in names)
+                for k, pats in KERNEL_NAMES.items()})
+
+
 def path_launches(cfg, prefill: bool = True, new: int = NEW) -> dict:
     """Launches one request of ``new`` new tokens implies: flash once per
     causal self-attention layer, decode once per such layer and decode step
@@ -801,7 +837,6 @@ def serve_phase(torch, store_dir: Path, base, device, caps):
     from repro_torch.core.costmodel import get_hardware
     from repro_torch.core.mrm import MRM, ModelKey
     from repro_torch.core.store import DiskStore
-    from repro_torch.kernels import ops
     from repro_torch.serving import InferenceEngine, Request, ServingWorkers
 
     cfgs = {"A": base.replace(n_layers=4), "B": base.replace(n_layers=2),
@@ -820,7 +855,6 @@ def serve_phase(torch, store_dir: Path, base, device, caps):
     toks = prompt(base.vocab_size)
     key = lambda n: ModelKey("repro-torch", n, "1")  # noqa: E731
 
-    ops.reset_launches()
     t_main = time.perf_counter()
     results, stats = {}, []
 
@@ -830,50 +864,50 @@ def serve_phase(torch, store_dir: Path, base, device, caps):
         stats.append(st)
         log(json.dumps({"request": len(stats), **dataclasses.asdict(st)}))
 
-    gen("A")                                            # disk
-    gen("A")                                            # device
-    mrm.prefetch(key("B"), tier="host").result()        # host: A, B
-    mrm.prefetch(key("C"), tier="host").result()        # host: B, C; A stays on the device
-    gen("B")                                            # host; A demoted D2H, C displaced
-    gen("A")                                            # host, saved by the demotion
+    with launched(torch) as launches:
+        gen("A")                                            # disk
+        gen("A")                                            # device
+        mrm.prefetch(key("B"), tier="host").result()        # host: A, B
+        mrm.prefetch(key("C"), tier="host").result()        # host: B, C; A stays on the device
+        gen("B")                                            # host; A demoted D2H, C displaced
+        gen("A")                                            # host, saved by the demotion
 
-    hits = [s.tier_hit for s in stats]
-    st = mrm.stats()
-    if hits != ["disk", "device", "host", "host"]:
-        raise AssertionError(f"tier hits {hits}")
-    if mrm.tiers.demotions < 1 or st["demotion_saved_reloads"] < 1:
-        raise AssertionError(f"demotions {mrm.tiers.demotions}, "
-                             f"saved reloads {st['demotion_saved_reloads']}")
-    a = results["A"]
-    if not all((x == a[0]).all() for x in a):
-        raise AssertionError("the three requests for A gave different tokens")
+        hits = [s.tier_hit for s in stats]
+        st = mrm.stats()
+        if hits != ["disk", "device", "host", "host"]:
+            raise AssertionError(f"tier hits {hits}")
+        if mrm.tiers.demotions < 1 or st["demotion_saved_reloads"] < 1:
+            raise AssertionError(f"demotions {mrm.tiers.demotions}, "
+                                 f"saved reloads {st['demotion_saved_reloads']}")
+        a = results["A"]
+        if not all((x == a[0]).all() for x in a):
+            raise AssertionError("the three requests for A gave different tokens")
 
-    # concurrent workers on the device-resident A: one shared device copy
-    disk_loads = st["disk_loads"]
-    device_ptrs = {n: t.data_ptr() for n, t in mrm.device.peek(key("A")).payload.items()}
-    seen = []
-    load = engine.load_model
+        # concurrent workers on the device-resident A: one shared device copy
+        disk_loads = st["disk_loads"]
+        device_ptrs = {n: t.data_ptr() for n, t in mrm.device.peek(key("A")).payload.items()}
+        seen = []
+        load = engine.load_model
 
-    def recording_load(name, version="1"):
-        sm, s = load(name, version)
-        seen.append({n: t.data_ptr() for n, t in sm.loaded.weights.items()})
-        return sm, s
+        def recording_load(name, version="1"):
+            sm, s = load(name, version)
+            seen.append({n: t.data_ptr() for n, t in sm.loaded.weights.items()})
+            return sm, s
 
-    engine.load_model = recording_load
-    workers = ServingWorkers(engine, n_workers=2)
-    reqs = [workers.submit(Request("A", toks, max_new=NEW)) for _ in range(4)]
-    workers.drain(reqs, timeout=600)
-    workers.stop()
-    engine.load_model = load
-    for r in reqs:
-        if isinstance(r.result, BaseException) or r.result is None:
-            raise RuntimeError(f"worker request failed: {r.result!r}")
-        if not (r.result == a[0]).all():
-            raise AssertionError("a worker's tokens differ from the first request's")
-        stats.append(r.stats)
-        log(json.dumps({"request": len(stats), **dataclasses.asdict(r.stats)}))
+        engine.load_model = recording_load
+        workers = ServingWorkers(engine, n_workers=2)
+        reqs = [workers.submit(Request("A", toks, max_new=NEW)) for _ in range(4)]
+        workers.drain(reqs, timeout=600)
+        workers.stop()
+        engine.load_model = load
+        for r in reqs:
+            if isinstance(r.result, BaseException) or r.result is None:
+                raise RuntimeError(f"worker request failed: {r.result!r}")
+            if not (r.result == a[0]).all():
+                raise AssertionError("a worker's tokens differ from the first request's")
+            stats.append(r.stats)
+            log(json.dumps({"request": len(stats), **dataclasses.asdict(r.stats)}))
     main_s = time.perf_counter() - t_main
-    launches = counts(ops)
 
     if mrm.stats()["disk_loads"] != disk_loads:
         raise AssertionError("the workers reloaded A from disk")
@@ -950,7 +984,6 @@ def stream_phase(torch, store_dir: Path, device, caps, want_tokens, batch_disk_h
     from repro_torch.core.costmodel import get_hardware
     from repro_torch.core.store import DiskStore
     from repro_torch.device import synchronize, tensor_from_numpy
-    from repro_torch.kernels import ops
     from repro_torch.serving import InferenceEngine
     from repro_torch.serving import engine as engine_mod
 
@@ -965,9 +998,9 @@ def stream_phase(torch, store_dir: Path, device, caps, want_tokens, batch_disk_h
     stats, launches = [], []
 
     def gen():
-        ops.reset_launches()
-        out, st = engine.generate("A", toks, NEW)
-        launches.append(counts(ops))
+        with launched(torch) as n:
+            out, st = engine.generate("A", toks, NEW)
+        launches.append(n)
         stats.append(st)
         log(json.dumps({"stream_request": len(stats), **dataclasses.asdict(st)}))
         if not np.array_equal(out, want_tokens):
@@ -1092,7 +1125,6 @@ def moe_phase(torch, store_dir: Path, cfg, device, caps):
     from repro_torch.core.costmodel import get_hardware
     from repro_torch.core.layerplan import plan_for_file
     from repro_torch.core.store import DiskStore
-    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serving import InferenceEngine
 
@@ -1105,9 +1137,9 @@ def moe_phase(torch, store_dir: Path, cfg, device, caps):
     stats, launches, tokens = [], [], []
 
     def gen(engine):
-        ops.reset_launches()
-        out, st = engine.generate("Q", toks, NEW)
-        launches.append(counts(ops))
+        with launched(torch) as n:
+            out, st = engine.generate("Q", toks, NEW)
+        launches.append(n)
         stats.append(st)
         tokens.append(out)
         log(json.dumps({"moe_request": len(stats), **dataclasses.asdict(st)}))
@@ -1379,7 +1411,6 @@ def cloud_phase(torch, store_dir: Path, build: Path, device, caps, want_tokens):
     from repro_torch.core.costmodel import get_hardware
     from repro_torch.core.objectstore import ObjectStore
     from repro_torch.core.store import DiskStore
-    from repro_torch.kernels import ops
     from repro_torch.serving import InferenceEngine
 
     cfg = model_config(store_dir)
@@ -1397,9 +1428,8 @@ def cloud_phase(torch, store_dir: Path, build: Path, device, caps, want_tokens):
     log(f"published A into the object store: {n_shards} shards in {put_s:.1f} s")
 
     def serve(engine, label):
-        ops.reset_launches()
-        out, st = engine.generate("A", toks, NEW)
-        launches = counts(ops)
+        with launched(torch) as launches:
+            out, st = engine.generate("A", toks, NEW)
         log(json.dumps({"cloud_request": label, **dataclasses.asdict(st)}))
         if not np.array_equal(out, want_tokens):
             raise AssertionError(f"phase 7 {label}: tokens differ from phase 3's")
@@ -1479,9 +1509,8 @@ def cloud_phase(torch, store_dir: Path, build: Path, device, caps, want_tokens):
                       hw=hw, device=device, objectstore=wb, writeback_to_cloud=True)
     engine = InferenceEngine(src, mrm, device=device)
     st3, _ = serve(engine, "writeback A")
-    ops.reset_launches()
-    engine.generate("B", toks, NEW)
-    l4 = counts(ops)
+    with launched(torch) as l4:
+        engine.generate("B", toks, NEW)
     if l4 != path_launches(engine._config_for(mrm_mod.ModelKey("repro-torch", "B", "1"))):
         raise AssertionError(f"phase 7 writeback B: launches {l4}")
     t0 = time.perf_counter()
@@ -1524,7 +1553,6 @@ def ipc_phase(torch, store_dir: Path, device, caps, want_tokens):
     from repro_torch.core.shm_ipc import MRMServer
     from repro_torch.core.store import DiskStore
     from repro_torch.device import tensor_from_numpy
-    from repro_torch.kernels import ops
     from repro_torch.serving import InferenceEngine
 
     free = shutil.disk_usage("/dev/shm").free
@@ -1542,9 +1570,8 @@ def ipc_phase(torch, store_dir: Path, device, caps, want_tokens):
     procs = []
     try:
         engine = InferenceEngine(disk, mrm, device=device)
-        ops.reset_launches()
-        out, st = engine.generate("A", prompt(cfg.vocab_size), NEW)
-        daemon_launches = counts(ops)
+        with launched(torch) as daemon_launches:
+            out, st = engine.generate("A", prompt(cfg.vocab_size), NEW)
         if st.tier_hit != "disk" or not np.array_equal(out, want_tokens):
             raise AssertionError(f"daemon request: tier {st.tier_hit}, tokens equal "
                                  f"{np.array_equal(out, want_tokens)}")
@@ -1757,7 +1784,6 @@ def cluster_phase(torch, store_dir: Path, build: Path, device, caps, want_tokens
     from repro_torch.core.objectstore import ObjectStore
     from repro_torch.core.placement import PlacementPlanner, PlannerConfig
     from repro_torch.core.store import DiskStore
-    from repro_torch.kernels import ops
     from repro_torch.serving import InferenceEngine
 
     cfg = model_config(store_dir)
@@ -1777,9 +1803,8 @@ def cluster_phase(torch, store_dir: Path, build: Path, device, caps, want_tokens
     def serve(n, label, streaming=False):
         engine = InferenceEngine(n.mrm.disk, n.mrm, device=device, streaming=streaming)
         engine._cfg_cache[("A", "1")] = cfg     # a cold node has no local file to read it from
-        ops.reset_launches()
-        out, st = engine.generate("A", toks, NEW)
-        launches = counts(ops)
+        with launched(torch) as launches:
+            out, st = engine.generate("A", toks, NEW)
         log(json.dumps({"cluster_request": label, **dataclasses.asdict(st)}))
         if not np.array_equal(out, want_tokens):
             raise AssertionError(f"phase 8 {label}: tokens differ from phase 3's")
@@ -2497,7 +2522,6 @@ def serve_trained(torch, cfg, params, build: Path, device):
     from repro_torch.core.costmodel import get_hardware
     from repro_torch.core.mrm import MRM
     from repro_torch.core.store import DiskStore
-    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serving import InferenceEngine, publish_model
 
@@ -2514,9 +2538,8 @@ def serve_trained(torch, cfg, params, build: Path, device):
         engine = InferenceEngine(disk, mrm, device=device)
         requests = []
         for _ in range(2):
-            ops.reset_launches()
-            got, st = engine.generate("T", toks, NEW)
-            launches = counts(ops)
+            with launched(torch) as launches:
+                got, st = engine.generate("T", toks, NEW)
             requests.append({**dataclasses.asdict(st), "launches": launches,
                              "tokens_sha1": tokens_sha1(got)})
             if not np.array_equal(got, want):
@@ -3288,11 +3311,10 @@ def examples_phase(torch, work: Path, device):
     del r
 
     for arch in ("olmo-1b", "deepseek-7b"):
-        ops.reset_launches()
-        r = example("serve_llm").run(arch=arch, device=str(device),
-                                     disk=DiskStore(str(work / "serve")))
         tag = f"serve_llm {arch}"
-        launches[tag] = counts(ops)
+        with launched(torch) as launches[tag]:
+            r = example("serve_llm").run(arch=arch, device=str(device),
+                                         disk=DiskStore(str(work / "serve")))
         n = sum(len(v) for v in r["served"].values()) + len(r["concurrent"])
         one = path_launches(get_config(arch).reduced(), new=8)
         want[tag] = {k: n * v for k, v in one.items()}
@@ -3308,9 +3330,8 @@ def examples_phase(torch, work: Path, device):
             raise AssertionError(f"{tag}: {runs[tag]}")
         del r
 
-    ops.reset_launches()
-    r = example("train_small").run(device=str(device), root=str(work / "train"))
-    launches["train_small"] = counts(ops)
+    with launched(torch) as launches["train_small"]:
+        r = example("train_small").run(device=str(device), root=str(work / "train"))
     steps = len(r["history"])
     step, serve = train_launches(r["cfg"]), path_launches(r["cfg"], new=8)
     want["train_small"] = {k: steps * step[k] + serve[k] for k in step}

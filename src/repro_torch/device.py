@@ -14,6 +14,8 @@ views, reshapes and copies). Arrays from the JAX package whose dtype is
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import warnings
 
 import numpy as np
@@ -34,10 +36,53 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+class _CaptureGate:
+    """Device syncs against CUDA graph captures. A device-wide sync while any
+    stream of the process captures is an error, from whatever thread, and it
+    breaks the capture. So a sync (:func:`synchronize`) waits while a
+    capture is open, and a capture (:func:`capturing`) holds new syncs off,
+    waits for those under way, and is the only one open."""
+
+    def __init__(self):
+        self.cv = threading.Condition()
+        self.syncs = 0
+        self.open = False
+
+
+_gate = _CaptureGate()
+
+
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
-    if device.type == "cuda":
+    """Wait for the device's queued work (a no-op on the CPU); on a card,
+    not while a CUDA graph capture is open (:func:`capturing`)."""
+    if device.type != "cuda":
+        return
+    with _gate.cv:
+        _gate.cv.wait_for(lambda: not _gate.open)
+        _gate.syncs += 1
+    try:
         torch.cuda.synchronize(device)
+    finally:
+        with _gate.cv:
+            _gate.syncs -= 1
+            _gate.cv.notify_all()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Hold the process's :func:`synchronize` calls off while the block
+    captures a CUDA graph: the MRM's staging and prefetch threads and other
+    requests sync the device as they go. The block itself must not sync."""
+    with _gate.cv:
+        _gate.cv.wait_for(lambda: not _gate.open)
+        _gate.open = True
+        _gate.cv.wait_for(lambda: _gate.syncs == 0)
+    try:
+        yield
+    finally:
+        with _gate.cv:
+            _gate.open = False
+            _gate.cv.notify_all()
 
 
 def is_distributed(x) -> bool:

@@ -46,7 +46,7 @@ DENSE and MoE.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -58,6 +58,7 @@ from repro_torch.models import moe as MoE
 from repro_torch.models import partitioning as part
 
 Params = Dict[str, Any]
+Pos = Union[int, torch.Tensor]     # a decode position: on the host, or (1,) on the device
 FAMILIES = (DENSE, MOE, SSM, HYBRID, VLM, ENCDEC)
 
 
@@ -247,12 +248,18 @@ def _map_leaves(fn, tree, *rest):
             else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
-def _write_kv(cache_layer: Params, k: torch.Tensor, v: torch.Tensor, start: int) -> Params:
+def _write_kv(cache_layer: Params, k: torch.Tensor, v: torch.Tensor, start: Pos) -> Params:
     """KV append, written IN PLACE into the cache (a view of the stacked
     cache, or one layer's own cache on the streaming path). The JAX version
     is out-of-place (dynamic_update_slice on an immutable array); the
     prefix-KV cache therefore stores a copy of each prefill cache and hands
-    every hit a fresh clone (``serving/prefix_cache.py``)."""
+    every hit a fresh clone (``serving/prefix_cache.py``). A ``start`` on
+    the device, a (1,) int64 tensor, takes one row (a decode step's token),
+    written by index so that the host never reads it."""
+    if torch.is_tensor(start):
+        cache_layer["k"].index_copy_(1, start, k.to(cache_layer["k"].dtype))
+        cache_layer["v"].index_copy_(1, start, v.to(cache_layer["v"].dtype))
+        return cache_layer
     S = k.shape[1]
     cache_layer["k"][:, start:start + S] = k.to(cache_layer["k"].dtype)
     cache_layer["v"][:, start:start + S] = v.to(cache_layer["v"].dtype)
@@ -544,20 +551,24 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 # decode step
 # ---------------------------------------------------------------------------
 
-def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: int,
+def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: Pos,
                       rope: bool = True) -> torch.Tensor:
     """``x + attn(ln1(x))`` for one token; its K/V appended to ``cl`` in place."""
     B = x.shape[0]
     h = L.apply_norm(cfg, p["ln1"], x)
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    if torch.is_tensor(pos):       # on the device: the same int32 values, no host read
+        positions = pos.to(torch.int32).view(1, 1)
+        kv_len = (positions[0] + 1).expand(B).contiguous()
+    else:
+        positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+        kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     q, k, v = L.qkv_project(cfg, p["attn"], h, positions, rope=rope)
     cl = _write_kv(cl, k, v, pos)
-    kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     o = L.decode_attention_core(cfg, q, cl["k"], cl["v"], kv_len)
     return x + L.attention_out(cfg, p["attn"], o)
 
 
-def _attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: int,
+def _attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: Pos,
                  rope: bool = True) -> Tuple[torch.Tensor, Params]:
     """x: (B,1,D); cl: one layer's KV cache. Returns (x, cache)."""
     return _ffn_block(cfg, p, _self_attn_decode(cfg, p, x, cl, pos, rope)), cl
@@ -575,12 +586,17 @@ def _mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params
 
 @_serving_step
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
-                token: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Params]:
-    """One decode step. token: (B,) ints; pos: cache length so far.
+                token: torch.Tensor, pos: Pos) -> Tuple[torch.Tensor, Params]:
+    """One decode step. token: (B,) ints; pos: cache length so far, a
+    Python int or a 0-d or (1,) int tensor on the token's device. The
+    tensor form reads nothing on the host, so that the step can be captured
+    in a CUDA graph and replayed at every position; it gives the same
+    logits and cache bits as the int.
 
     Returns (logits (B, V), cache); the cache is updated in place."""
     _check_family(cfg)
-    fam, pos = cfg.family, int(pos)
+    fam = cfg.family
+    pos = pos.reshape(1).long() if torch.is_tensor(pos) else int(pos)
     x = part.shard_btd(part.embed_lookup(params["embed"], token)[:, None, :]
                        .to(cfg.cdtype))                                    # (B,1,D)
     if fam in (DENSE, MOE):

@@ -13,13 +13,16 @@ builds, kernel loads, cuBLAS set-up), timed the way the JAX engine times
 XLA's first run. With ``streaming`` on, a cold DENSE or MoE model is served
 layer by layer against a partial open (DESIGN.md §9); with ``prefix_cache_bytes``
 the batch path reuses the prefill of a prompt it has seen
-(``serving/prefix_cache.py``).
+(``serving/prefix_cache.py``). On the batch path a DENSE or MoE model on
+one card replays its decode steps from a CUDA graph (:class:`DecodeGraph`),
+one launch a step in place of one for each of its kernels and copies.
 
 Latency accounting per request mirrors paper Fig. 1/9:
   model_load_s (disk+deserialize+H2D | share), compile_s, compute_s.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -37,13 +40,15 @@ from repro_torch.core.cache import Tier
 from repro_torch.core.client import LoadedModel, TrimsClient, cold_load, free_model
 from repro_torch.core.mrm import MRM, ModelKey
 from repro_torch.core.store import DiskStore
-from repro_torch.device import resolve_device, synchronize, tensor_from_numpy
+from repro_torch.device import (capturing, is_distributed, resolve_device, synchronize,
+                                tensor_from_numpy)
 from repro_torch.models import model as M
 from repro_torch.runtime import trace
 from repro_torch.serving.prefix_cache import PrefixKVStore, prompt_key
 from repro_torch.serving.weights_io import flat_to_params_like, params_to_flat
 
 FRAMEWORK = "repro-torch"
+GRAPH_POOL = 4      # captured decode steps an engine keeps; the least recently used go first
 
 
 def arch_signature(cfg: ModelConfig) -> str:
@@ -59,6 +64,88 @@ def publish_model(disk: DiskStore, cfg: ModelConfig, params,
     disk.put(key, params_to_flat(params),
              meta={"config": dataclasses.asdict(cfg)})
     return key
+
+
+def graph_decode_ok(cfg: ModelConfig, params, device: torch.device) -> bool:
+    """Whether the batch path replays this model's decode steps from a CUDA
+    graph, read from the input alone: the device is CUDA; the params are
+    plain tensors (a DTensor step runs collectives); the family is DENSE or
+    MOE (the other families' steps have not been shown capturable on the
+    card); and the MoE dispatch is not ``"ragged"``, which reads its group
+    sizes on the host."""
+    return (device.type == "cuda" and cfg.family in (DENSE, MOE)
+            and cfg.moe_impl != "ragged" and not is_distributed(params["embed"]))
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def param_layout(params) -> tuple:
+    """Address, shape, stride and dtype of every parameter leaf. A graph
+    reads its weights at the addresses it was captured with, so it is
+    replayed only for params laid out the same."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in _leaves(params))
+
+
+class DecodeGraph:
+    """One decode step captured in a CUDA graph, and the static tensors it
+    reads and writes: the token (B,), the position (1,) on the device, a KV
+    cache of (n_layers, B, max_len, Hkv, hd) and the output tokens (B,
+    max_len), whose column ``p`` holds the token chosen by the step at
+    position ``p``. The step advances its own token and position, so that a
+    replay takes no host work. It holds no reference to the params."""
+
+    def __init__(self, cfg: ModelConfig, B: int, max_len: int, device: torch.device):
+        with torch.inference_mode():
+            self.cache = M.init_cache(cfg, B, max_len, device)
+            self.token = torch.zeros(B, dtype=torch.long, device=device)
+            self.pos = torch.zeros(1, dtype=torch.long, device=device)
+            self.out = torch.zeros(B, max_len, dtype=torch.long, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in (*_leaves(self.cache), self.token, self.pos, self.out))
+        self.busy = True              # lent to the request that made it
+
+    @torch.inference_mode()
+    def prime(self, cache, token: torch.Tensor, pos: int) -> None:
+        """Load a request's primed prefill cache, first token and position."""
+        for dst, src in zip(_leaves(self.cache), _leaves(cache)):
+            dst.copy_(src)
+        self.token.copy_(token)
+        self.pos.fill_(pos)
+
+    @torch.inference_mode()
+    def step(self, cfg: ModelConfig, params) -> None:
+        """One decode step on the static tensors, run eagerly or captured."""
+        logits, _ = M.decode_step(cfg, params, self.cache, self.token, self.pos)
+        nxt = logits.argmax(-1)
+        self.out.index_copy_(1, self.pos, nxt[:, None])
+        self.token.copy_(nxt)
+        self.pos.add_(1)
+
+    def capture(self, cfg: ModelConfig, params) -> None:
+        """Capture :meth:`step` on the current stream, which must have run
+        it once (cuBLAS makes its workspace for a stream on first use), with
+        the process's device syncs held off (:func:`capturing`). Nothing
+        runs; the kernels' wrappers count the launches they record, once,
+        and a replay passes no wrapper. The reserved memory's growth over
+        the capture, the graph's private pool, is added to ``nbytes``."""
+        dev = self.out.device
+        graph = torch.cuda.CUDAGraph()
+        with capturing():
+            reserved = torch.cuda.memory_reserved(dev)
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.step(cfg, params)
+            finally:
+                graph.capture_end()
+            self.nbytes += torch.cuda.memory_reserved(dev) - reserved
+        self.graph = graph
 
 
 @dataclass
@@ -81,6 +168,7 @@ class RequestStats:
     total_s: float
     ttft_s: float = 0.0          # submit -> first token materialized
     streamed: bool = False       # served via the layer-streaming path (§9)
+    graph_steps: int = 0         # decode steps replayed from a CUDA graph
 
 
 class InferenceEngine:
@@ -115,6 +203,20 @@ class InferenceEngine:
         self.exe_cache_misses = 0
         self.prefix_kv = (PrefixKVStore(prefix_cache_bytes)
                           if prefix_cache_bytes > 0 else None)
+        # decode graphs by (decode signature, param layout), each lent to one
+        # request at a time; one not captured yet is lent to the request
+        # that captures it
+        self._graphs: "collections.OrderedDict[tuple, DecodeGraph]" = collections.OrderedDict()
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.graph_eager_steps = 0    # decode steps run eagerly by requests graph_decode_ok admits
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the pooled decode graphs hold (static tensors and
+        private memory pools)."""
+        with self._lock:
+            return sum(g.nbytes for g in self._graphs.values())
 
     # ------------------------------------------------------------- loading
     def _config_for(self, key: ModelKey) -> ModelConfig:
@@ -257,12 +359,17 @@ class InferenceEngine:
                         ) -> Tuple[np.ndarray, RequestStats]:
         t_start = time.perf_counter()
         sm, load_s = self.load_model(name, version)
+        g = None
         try:
             B, S = tokens.shape
             max_len = S + max_new_tokens
             exe_p, sig_p = self._executable(sm.cfg, "prefill", B, S, max_len)
             exe_d, sig_d = self._executable(sm.cfg, "decode", B, 1, max_len)
             extra_c = 0.0
+            n_steps, graph_steps, key = max_new_tokens - 1, 0, None
+            if n_steps > 0 and graph_decode_ok(sm.cfg, sm.params, self.device):
+                key = (sig_d, param_layout(sm.params))
+                g = self._lend_graph(key, sm.cfg, B, max_len)
 
             t0 = time.perf_counter()
             batch = {"tokens": torch.as_tensor(np.asarray(tokens), dtype=torch.long,
@@ -286,17 +393,31 @@ class InferenceEngine:
             tok = logits.argmax(-1)
             synchronize(self.device)
             ttft_s = time.perf_counter() - t_start
-            out = [tok]
-            for i in range(max_new_tokens - 1):
-                with trace.span("engine.decode_step", batch=B):
-                    (logits, cache), dc = self._run_exe(
-                        sig_d, exe_d, sm.params, cache, tok, S + i)
-                    tok = logits.argmax(-1)
+            if g is not None:
+                g.prime(cache, tok, S)
+                rest, graph_steps, dc = self._decode_on_graph(sm, sig_d, key, g, S, n_steps)
                 extra_c += dc
-                out.append(tok)
-            result = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+                result = torch.cat([tok[:, None], rest], dim=1).cpu()
+            else:
+                out = [tok]
+                for i in range(n_steps):
+                    with trace.span("engine.decode_step", batch=B, graph=False):
+                        (logits, cache), dc = self._run_exe(
+                            sig_d, exe_d, sm.params, cache, tok, S + i)
+                        tok = logits.argmax(-1)
+                    extra_c += dc
+                    out.append(tok)
+                result = torch.stack(out, dim=1).cpu()
+            if key is not None:
+                with self._lock:
+                    self.graph_replays += graph_steps
+                    self.graph_eager_steps += n_steps - graph_steps
+            result = result.numpy().astype(np.int32)
             compute_s = max(0.0, time.perf_counter() - t0 - extra_c)
         finally:
+            if g is not None:
+                with self._lock:
+                    g.busy = False
             self.release(sm)
 
         tm = sm.loaded.timings
@@ -304,10 +425,69 @@ class InferenceEngine:
             model=name, cold=not sm.loaded.via_trims or tm.tier_hit != "device",
             tier_hit=tm.tier_hit, model_load_s=load_s,
             compile_s=extra_c, compute_s=compute_s,
-            total_s=time.perf_counter() - t_start, ttft_s=ttft_s)
+            total_s=time.perf_counter() - t_start, ttft_s=ttft_s, graph_steps=graph_steps)
         with self._lock:
             self.stats.append(st)
         return result, st
+
+    def _lend_graph(self, key: tuple, cfg: ModelConfig, B: int, max_len: int
+                    ) -> Optional[DecodeGraph]:
+        """The pool's graph for ``key``, lent to this request alone: a new
+        one, which this request captures, where the pool has none; None
+        while another request holds it (this one steps eagerly). Beyond
+        ``GRAPH_POOL`` the least recently used graphs not lent out go."""
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is not None:
+                if g.busy:
+                    return None
+                g.busy = True
+                self._graphs.move_to_end(key)
+                return g
+            idle = [k for k, v in self._graphs.items() if not v.busy]
+            for k in idle[:max(0, len(self._graphs) + 1 - GRAPH_POOL)]:
+                del self._graphs[k]
+            g = self._graphs[key] = DecodeGraph(cfg, B, max_len, self.device)
+            return g
+
+    def _decode_on_graph(self, sm: ServableModel, sig: tuple, key: tuple, g: DecodeGraph,
+                         S: int, n_steps: int) -> Tuple[torch.Tensor, int, float]:
+        """``n_steps`` decode steps on the lent, primed graph ``g``. A graph
+        not captured yet runs the first step eagerly and is captured after
+        it (:meth:`_capture`). Returns (tokens (B, n_steps), steps replayed,
+        seconds of set-up for ``compile_s``)."""
+        eager, setup_s = 0, 0.0
+        if g.graph is None:
+            eager, setup_s = 1, self._capture(sm, sig, key, g)
+        for _ in range(n_steps - eager):
+            with trace.span("engine.decode_step", batch=g.token.shape[0], graph=True):
+                g.graph.replay()
+        return g.out[:, S:S + n_steps], n_steps - eager, setup_s
+
+    def _capture(self, sm: ServableModel, sig: tuple, key: tuple, g: DecodeGraph) -> float:
+        """Run the request's first decode step eagerly on a side stream of
+        its own, then capture the step there. A capture that fails takes its
+        graph out of the pool and raises. Returns the first call's set-up
+        seconds (:meth:`_run_exe`) and the capture's."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(side):
+                with trace.span("engine.decode_step", batch=g.token.shape[0], graph=False):
+                    _, setup_s = self._run_exe(sig, g.step, sm.cfg, sm.params)
+                t0 = time.perf_counter()
+                g.capture(sm.cfg, sm.params)
+        except BaseException:
+            with self._lock:
+                if self._graphs.get(key) is g:
+                    del self._graphs[key]
+            raise
+        finally:
+            cur.wait_stream(side)
+        with self._lock:
+            self.graph_captures += 1
+        return setup_s + time.perf_counter() - t0
 
     def _generate_streaming(self, name: str, tokens: np.ndarray,
                             max_new_tokens: int, version: str

@@ -738,3 +738,282 @@ def test_span_joins_the_profiler_trace_by_thread_and_clock(cuda_device):
               f"{(k.start_ns() - call.start_ns()) / 1e6:.3f} ms, span end - kernel end "
               f"{(e - k_end) / 1e6:.3f} ms, kernel {k.duration_ns() / 1e6:.3f} ms")
         assert s <= k.start_ns() and k_end <= e
+
+
+def _graph_models(cuda_device, disk, arch="deepseek-7b", names=("m",)):
+    """Small bf16 models of ``arch`` on ``disk``, each with its own weights
+    (DENSE; or capacity MoE with GQA and QK-norm). Returns (cfg, {name:
+    params on the card})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import publish_model
+
+    cfg = get_config(arch).reduced().replace(d_model=256, d_head=64, n_layers=3)
+    params = {}
+    for seed, name in enumerate(names):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        params[name] = init_params(cfg, gen, device=cuda_device)
+        publish_model(disk, cfg, params[name], name=name)
+    return cfg, params
+
+
+def _eager_tokens(cfg, params, toks, n):
+    import numpy as np
+
+    from repro_torch.models import model as M
+
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.long, device=params["embed"].device)}
+    out = M.greedy_generate(cfg, params, batch, n, toks.shape[1] + n)
+    return out.cpu().numpy().astype(np.int32)
+
+
+def _prompts(cfg, n, B=2, S=40):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32) for _ in range(n)]
+
+
+def _counted():
+    """Each kernel wrapper's ``launches`` since the last reset."""
+    return {m.__name__.rsplit(".", 1)[1]: m.launches for m in (tflash, tdecode, trms)}
+
+
+# each kernel module's kernels, as the device trace names them
+KERNEL_NAMES = {"flash_attention": ("flash_fwd_tc", "flash_fwd_f32"),
+                "decode_attention": ("decode_split_kernel",), "rmsnorm": ("rmsnorm_kernel",)}
+
+
+def _ran(prof):
+    """Each kernel module's kernels on a profiler's device trace."""
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    return {k: sum(any(p in n for p in pats) for n in names) for k, pats in KERNEL_NAMES.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-moe-30b-a3b"])
+def test_graph_decode_tokens_and_launches_equal_the_eager_step(cuda_device, tmp_path, arch):
+    """DENSE and capacity MoE served through the engine: the first request
+    runs one eager step and captures, every later step is replayed; tokens
+    equal greedy_generate's eager tokens bit for bit over requests with
+    different prompts. The wrappers count only what passes them: the
+    prefill, the eager step and the capture's record, once; a replay adds
+    nothing."""
+    import numpy as np
+
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving import InferenceEngine
+
+    disk = DiskStore(str(tmp_path))
+    cfg, params = _graph_models(cuda_device, disk, arch)
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30))
+    n = 6
+    for i, toks in enumerate(_prompts(cfg, 3)):
+        ops.reset_launches()
+        got, st = eng.generate("m", toks, max_new_tokens=n)
+        counted = _counted()
+        ops.reset_launches()
+        want = _eager_tokens(cfg, params["m"], toks, n)
+        eager = _counted()
+        ops.reset_launches()
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.long, device=cuda_device)}
+        M.prefill(cfg, params["m"], batch, toks.shape[1] + n)
+        prefill = _counted()
+        step = {k: (eager[k] - prefill[k]) // (n - 1) for k in eager}
+        np.testing.assert_array_equal(got, want)
+        passed = 2 if i == 0 else 0          # the eager step and the capture
+        assert counted == {k: prefill[k] + passed * step[k] for k in step}
+        assert step["decode_attention"] == cfg.n_layers
+        assert st.graph_steps == (n - 2 if i == 0 else n - 1)
+    assert (eng.graph_captures, eng.graph_replays, eng.graph_eager_steps) == (1, 3 * n - 4, 1)
+    assert eng.graph_pool_bytes > 0
+
+
+@pytest.mark.cuda
+def test_graph_per_tenant_and_a_new_capture_after_restaging(cuda_device, tmp_path):
+    """Two tenants of one architecture with different weights get a graph
+    each. A tenant evicted and staged again at new addresses (its old
+    tensors are held, so the addresses cannot repeat) is captured again,
+    and every request gives the eager tokens."""
+    import numpy as np
+
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving import engine as E
+
+    disk = DiskStore(str(tmp_path))
+    cfg, params = _graph_models(cuda_device, disk, names=("a", "b"))
+    nbytes = sum(t.numel() * t.element_size() for t in E._leaves(params["a"]))
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=int(1.5 * nbytes),
+                                    host_capacity=1 << 30))
+    toks = _prompts(cfg, 1)[0]
+    want = {m: _eager_tokens(cfg, params[m], toks, 5) for m in ("a", "b")}
+
+    def layout(name):
+        sm, _ = eng.load_model(name)
+        try:
+            return E.param_layout(sm.params), sm.params
+        finally:
+            eng.release(sm)
+
+    got, _ = eng.generate("a", toks, max_new_tokens=5)
+    np.testing.assert_array_equal(got, want["a"])
+    first, held = layout("a")
+    got, st = eng.generate("b", toks, max_new_tokens=5)    # evicts a
+    np.testing.assert_array_equal(got, want["b"])
+    assert eng.graph_captures == 2 and st.graph_steps == 3
+    got, st = eng.generate("a", toks, max_new_tokens=5)    # a staged again
+    np.testing.assert_array_equal(got, want["a"])
+    again, _ = layout("a")
+    assert again != first and st.tier_hit == "host"
+    assert eng.graph_captures == 3 and st.graph_steps == 3
+    del held
+
+
+@pytest.mark.cuda
+def test_concurrent_workers_share_one_graph_lent_at_a_time(cuda_device, tmp_path):
+    """Two workers on one engine serve one model at once: one graph, lent
+    to one request at a time (the other steps eagerly), eager tokens for
+    every request."""
+    import numpy as np
+
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.serving import InferenceEngine, Request, ServingWorkers
+
+    disk = DiskStore(str(tmp_path))
+    cfg, params = _graph_models(cuda_device, disk, "qwen3-moe-30b-a3b")
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30))
+    prompts = _prompts(cfg, 8)
+    eng.generate("m", prompts[0], max_new_tokens=8)           # the capture
+    workers = ServingWorkers(eng, n_workers=2, lookahead_prefetch=False)
+    try:
+        reqs = [workers.submit(Request("m", p, max_new=8)) for p in prompts]
+        workers.drain(reqs, timeout=300)
+    finally:
+        workers.stop()
+    for r, p in zip(reqs, prompts):
+        assert not isinstance(r.result, Exception), r.result
+        np.testing.assert_array_equal(r.result, _eager_tokens(cfg, params["m"], p, 8))
+    assert eng.graph_captures == 1 and len(eng._graphs) == 1
+    assert eng.graph_replays == 6 + sum(r.stats.graph_steps for r in reqs)
+    assert eng.graph_replays + eng.graph_eager_steps == 7 * (len(reqs) + 1)
+    print(f"graph steps per request {[r.stats.graph_steps for r in reqs]}")
+
+
+@pytest.mark.cuda
+def test_captures_while_other_threads_sync_the_device(cuda_device, tmp_path):
+    """Captures with the process's other threads at work: two workers with
+    look-ahead prefetch serve two tenants at four prompt lengths (eight keys,
+    twice the pool), so keys are captured and evicted and captured again
+    while the other worker's request and the MRM's staging thread run, and
+    a third thread syncs the device without pause. Every request gives the
+    eager tokens and no capture fails."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.device import synchronize
+    from repro_torch.serving import InferenceEngine, Request, ServingWorkers
+
+    disk = DiskStore(str(tmp_path))
+    cfg, params = _graph_models(cuda_device, disk, names=("a", "b"))
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30))
+    jobs = [(m, _prompts(cfg, 1, S=S)[0]) for S in (40, 48, 56, 64) for m in ("a", "b")] * 2
+    stop, syncs, errors = threading.Event(), [0], []
+
+    def syncing():
+        try:
+            while not stop.is_set():
+                synchronize(cuda_device)
+                syncs[0] += 1
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    th = threading.Thread(target=syncing)
+    th.start()
+    workers = ServingWorkers(eng, n_workers=2)
+    try:
+        reqs = [workers.submit(Request(m, toks, max_new=6)) for m, toks in jobs]
+        workers.drain(reqs, timeout=300)
+    finally:
+        workers.stop()
+        stop.set()
+        th.join()
+    assert not errors, errors
+    for r, (m, toks) in zip(reqs, jobs):
+        assert not isinstance(r.result, Exception), r.result
+        np.testing.assert_array_equal(r.result, _eager_tokens(cfg, params[m], toks, 6))
+    assert eng.graph_captures >= 8 and syncs[0] > 0
+    print(f"captures {eng.graph_captures}, device syncs {syncs[0]}, "
+          f"graph steps {[r.stats.graph_steps for r in reqs]}")
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_fails_its_request(cuda_device, tmp_path, monkeypatch):
+    """A capture that raises fails its request and leaves no graph in the
+    pool; the next request of the key captures and replays."""
+    import numpy as np
+
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving import engine as E
+
+    def fail(self, cfg, params):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    disk = DiskStore(str(tmp_path))
+    cfg, params = _graph_models(cuda_device, disk)
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30))
+    toks = _prompts(cfg, 1)[0]
+    with monkeypatch.context() as mp:
+        mp.setattr(E.DecodeGraph, "capture", fail)
+        with pytest.raises(RuntimeError, match="capturing"):
+            eng.generate("m", toks, max_new_tokens=5)
+    assert (eng.graph_captures, len(eng._graphs)) == (0, 0)
+    got, st = eng.generate("m", toks, max_new_tokens=5)
+    np.testing.assert_array_equal(got, _eager_tokens(cfg, params["m"], toks, 5))
+    assert (eng.graph_captures, st.graph_steps) == (1, 3)
+
+
+@pytest.mark.cuda
+def test_replayed_steps_run_the_hand_written_kernels(cuda_device, tmp_path):
+    """The card's trace of served MoE requests, the capture's and a
+    replayed one, shows the kernels the eager path launches, by name and
+    count: a replay runs the captured split-KV decode and RMSNorm kernels,
+    none swapped for a library's."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.mrm import MRM
+    from repro_torch.core.store import DiskStore
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceEngine
+
+    disk = DiskStore(str(tmp_path))
+    cfg, params = _graph_models(cuda_device, disk, "qwen3-moe-30b-a3b")
+    eng = InferenceEngine(disk, MRM(disk, device_capacity=1 << 30, host_capacity=1 << 30))
+    for toks, replayed in zip(_prompts(cfg, 2), (4, 5)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            x = torch.zeros(1024, device=cuda_device)
+            for _ in range(256):  # a trace can lose the first activity of its window
+                x.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            _, st = eng.generate("m", toks, max_new_tokens=6)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        ops.reset_launches()
+        _eager_tokens(cfg, params["m"], toks, 6)
+        assert st.graph_steps == replayed
+        assert _ran(prof) == _counted()
+        assert _counted()["decode_attention"] == 3 * 5

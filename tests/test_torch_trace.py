@@ -248,7 +248,8 @@ def test_serving_spans_per_request(moe_store, spans_on):
 
         steps = [r for r in mine if r[NAME] == "engine.decode_step"]
         assert len(steps) == NEW - 1
-        assert all(s[PARENT] == top[SID] and s[ATTRS] == {"batch": 2} for s in steps)
+        assert all(s[PARENT] == top[SID] and s[ATTRS] == {"batch": 2, "graph": False}
+                   for s in steps)
         # one dispatch and one expert product per MoE layer of every forward:
         # the prefill's and each decode step's
         step_ids = {s[SID] for s in steps}
