@@ -63,8 +63,8 @@ def main(argv=None) -> int:
     ap.add_argument("--control", type=int, default=3)
     ap.add_argument("--seconds", type=float, default=8.0)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--fault", choices=sorted(faults.FAULTS), default=None,
-                    help="plant this fault of the timed path first")
+    ap.add_argument("--fault", default=None,
+                    help="plant this fault of the timed path first (faults.of_cell)")
     ap.add_argument("--witness", nargs="*", default=[],
                     help="also read the reference in these precisions (bfloat16)")
     args = ap.parse_args(argv)
@@ -74,7 +74,10 @@ def main(argv=None) -> int:
     from trimsbench.spec import load_cell
     cell = load_cell(args.workload, ROOT)
     if args.fault:
-        faults.plant(args.fault)
+        can = faults.of_cell(cell.config, cell.traffic)
+        if args.fault not in can:
+            ap.error(f"--fault: {cell.name} can have {can}, not {args.fault!r}")
+        faults.plant(args.fault, cell.config)
     device = torch.device("cuda", 0)
     for i, seed in enumerate(args.seeds):
         line = json.dumps(reading(cell, seed, args.seconds, i < args.control, device,

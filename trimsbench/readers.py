@@ -47,7 +47,7 @@ def roofline(run, kernel: str) -> Optional[float]:
         return None
     t = run.t
     per_req = flops.request_kernel_bounds(run.c, t["batch"], t["prompt"], t["new_tokens"])
-    bounds = per_req[kernel]
+    bounds = per_req.get(kernel)
     n, seconds = run.trace.kernel(kernel)
     if not bounds or n != len(bounds) * len(run.done) or seconds <= 0:
         return None

@@ -1,10 +1,12 @@
 """Plain float32 forward of the benchmark's configurations, in PyTorch.
 
-The yardstick that decides ``correct``: a llama-style decoder
-(deepseek-llm) and a Qwen3-MoE decoder, written from their published
-descriptions over the weights of ``weights.py``. It imports nothing of the
-program and uses no kernel of it: every product is a plain ``@`` in
-float32, with TF32 off.
+The yardstick that decides ``correct``. Each architecture's decoder is
+written from its published description over the weights of ``weights.py``
+in ``refs/<model_type>.py`` (``final_hidden`` and ``logits``), from the
+blocks here; ``final_hidden`` and ``logits`` below find it by the
+configuration's ``model_type``. Neither imports anything of the program or
+uses a kernel of it: every product is a plain ``@`` in float32, with TF32
+off (set here, before every call of an architecture's forward).
 
 Departures from the published models, each stated by the configuration's
 file: the input embedding is tied to the output head (``tie_word_embeddings``
@@ -28,6 +30,8 @@ import math
 from typing import Dict, Optional
 
 import torch
+
+from trimsbench import spec
 
 Weights = Dict[str, torch.Tensor]
 E4M3_MAX = 448.0
@@ -74,9 +78,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention(c: dict, w: Weights, i: int, h: torch.Tensor, lin: Linear) -> torch.Tensor:
-    """Causal self-attention of one layer over h (B, T, d), one sequence at
-    a time."""
+def layer(w: Weights, prefix: str, i: int) -> Weights:
+    """Layer ``i`` of every stacked leaf under ``prefix``, by the rest of
+    its name: ``layer(w, "layers/attn/", 0)["wq"]``."""
+    return {k[len(prefix):]: v[i] for k, v in w.items() if k.startswith(prefix)}
+
+
+def attention(c: dict, p: Weights, h: torch.Tensor, lin: Linear) -> torch.Tensor:
+    """Causal self-attention of one layer (``p``: ``wq``, ``wk``, ``wv``,
+    ``wo`` and, with QK-norm, ``q_norm`` and ``k_norm``) over h (B, T, d),
+    one sequence at a time, with RoPE."""
     B, T, d = h.shape
     H, G = c["num_attention_heads"], c["num_key_value_heads"]
     hd = c.get("head_dim") or d // H
@@ -84,26 +95,26 @@ def attention(c: dict, w: Weights, i: int, h: torch.Tensor, lin: Linear) -> torc
     causal = pos[:, None] >= pos[None, :]
     out = torch.empty(B, T, H * hd, device=h.device)
     for b in range(B):
-        q = lin(h[b], w["layers/attn/wq"][i]).view(T, H, hd)
-        k = lin(h[b], w["layers/attn/wk"][i]).view(T, G, hd)
-        v = lin(h[b], w["layers/attn/wv"][i]).view(T, G, hd)
-        if "layers/attn/q_norm" in w:
-            q = rmsnorm(q, w["layers/attn/q_norm"][i], c["rms_norm_eps"])
-            k = rmsnorm(k, w["layers/attn/k_norm"][i], c["rms_norm_eps"])
+        q = lin(h[b], p["wq"]).view(T, H, hd)
+        k = lin(h[b], p["wk"]).view(T, G, hd)
+        v = lin(h[b], p["wv"]).view(T, G, hd)
+        if "q_norm" in p:
+            q = rmsnorm(q, p["q_norm"], c["rms_norm_eps"])
+            k = rmsnorm(k, p["k_norm"], c["rms_norm_eps"])
         q, k = rope(q, pos, c["rope_theta"]), rope(k, pos, c["rope_theta"])
         k = k.repeat_interleave(H // G, dim=1)            # query head j reads kv head j // (H/G)
         v = v.repeat_interleave(H // G, dim=1)
         s = torch.einsum("qhd,khd->hqk", q, k) / math.sqrt(hd)
-        p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
-        out[b] = torch.einsum("hqk,khd->qhd", p, v).reshape(T, H * hd)
-    return lin(out, w["layers/attn/wo"][i])
+        p_attn = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+        out[b] = torch.einsum("hqk,khd->qhd", p_attn, v).reshape(T, H * hd)
+    return lin(out, p["wo"])
 
 
-def mlp(w: Weights, i: int, x: torch.Tensor, lin: Linear, prefix: str = "layers/ffn/",
-        e: Optional[int] = None) -> torch.Tensor:
+def mlp(p: Weights, x: torch.Tensor, lin: Linear, e: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU of ``p``'s ``w_gate``, ``w_up``, ``w_down`` (expert ``e`` of
+    them where given)."""
     def weight(n):
-        t = w[prefix + n][i]
-        return t if e is None else t[e]
+        return p[n] if e is None else p[n][e]
     g = lin(x, weight("w_gate"))
     return lin(torch.nn.functional.silu(g) * lin(x, weight("w_up")), weight("w_down"))
 
@@ -113,18 +124,18 @@ def capacity(n_tokens: int, c: dict) -> int:
     return max(1, int(math.ceil(n_tokens * c["num_experts_per_tok"] / c["num_experts"] * cf)))
 
 
-def moe(c: dict, w: Weights, i: int, x: torch.Tensor, prompt_len: int,
-        lin: Linear) -> torch.Tensor:
-    """Top-k MoE of one layer over x (B, T, d) with capacity dispatch: the
-    first ``prompt_len`` positions of all rows form one group (row-major),
-    every later position one group of B tokens."""
+def moe(c: dict, p: Weights, x: torch.Tensor, prompt_len: int, lin: Linear) -> torch.Tensor:
+    """Top-k MoE of one layer (``p``: ``router`` and the experts' stacked
+    ``w_gate``, ``w_up``, ``w_down``) over x (B, T, d) with capacity
+    dispatch: the first ``prompt_len`` positions of all rows form one group
+    (row-major), every later position one group of B tokens."""
     B, T, d = x.shape
     E, K = c["num_experts"], c["num_experts_per_tok"]
     parts = [x[:, :prompt_len].reshape(B * prompt_len, d)]
     parts += [x[:, t] for t in range(prompt_len, T)]
     sizes = [p.shape[0] for p in parts]
     flat = torch.cat(parts)                                            # (N, d)
-    probs = torch.softmax(lin(flat, w["layers/ffn/router"][i]), dim=-1)
+    probs = torch.softmax(lin(flat, p["router"]), dim=-1)
     topw, topi = torch.topk(probs, K, dim=-1)
     if c.get("norm_topk_prob", True):
         topw = topw / topw.sum(-1, keepdim=True)
@@ -147,7 +158,7 @@ def moe(c: dict, w: Weights, i: int, x: torch.Tensor, prompt_len: int,
         sel = keep & (e_flat == e)
         if sel.any():
             t = tok[sel]
-            y = mlp(w, i, flat[t], lin, e=e) * w_flat[sel][:, None]
+            y = mlp(p, flat[t], lin, e=e) * w_flat[sel][:, None]
             out.index_add_(0, t, y)
     y = torch.empty_like(x)
     y[:, :prompt_len] = out[:sizes[0]].view(B, prompt_len, d)
@@ -162,23 +173,20 @@ def final_hidden(c: dict, w: Weights, tokens: torch.Tensor, prompt_len: int,
     positions whose logits pick a served token: the prompt's last and
     every later one. ``tokens`` (B, T) is the prompt followed by all served
     tokens but the last."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    lin = Linear(precision)
-    eps = c["rms_norm_eps"]
-    x = w["embed"][tokens].float()
-    for i in range(c["num_hidden_layers"]):
-        x = x + attention(c, w, i, rmsnorm(x, w["layers/ln1/scale"][i], eps), lin)
-        h = rmsnorm(x, w["layers/ln2/scale"][i], eps)
-        x = x + (moe(c, w, i, h, prompt_len, lin) if c.get("num_experts")
-                 else mlp(w, i, h, lin))
-    return rmsnorm(x[:, prompt_len - 1:], w["final_norm/scale"], eps)
+    _tf32_off()
+    return spec.refs(c).final_hidden(c, w, tokens, prompt_len, Linear(precision))
 
 
 def logits(c: dict, w: Weights, h: torch.Tensor, precision: str = "float32") -> torch.Tensor:
     """Logits over the vocabulary (rows past ``vocab_size`` cut) for h
-    (..., d), through the tied embedding."""
-    return Linear(precision)(h, w["embed"][:c["vocab_size"]].T)
+    (..., d)."""
+    _tf32_off()
+    return spec.refs(c).logits(c, w, h, Linear(precision))
+
+
+def _tf32_off() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def gaps(c: dict, w: Weights, h_ref: torch.Tensor, served: torch.Tensor,

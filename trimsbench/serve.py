@@ -20,33 +20,35 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.client import TrimsClient
 from repro_torch.core.mrm import MRM
 from repro_torch.core.store import DiskStore
 from repro_torch.models import model as M
 from repro_torch.serving.engine import InferenceEngine, Request, ServingWorkers, publish_model
 
-from trimsbench import weights
+from trimsbench import spec, weights
 
 REQUEST_TIMEOUT_S = 120.0
 
 
 def port_config(c: dict) -> ModelConfig:
     """The port's ``ModelConfig`` for a configuration file (Hugging Face
-    keys, as run)."""
-    moe = weights.is_moe(c)
+    keys, as run), from its architecture's file."""
+    return spec.arch(c).port_config(c)
+
+
+def decoder_config(c: dict, **fields) -> ModelConfig:
+    """A ``ModelConfig`` with the fields every decoder of Hugging Face keys
+    shares, and ``fields`` (the family and what belongs to it) besides."""
     return ModelConfig(
-        name=c["name"], family=MOE if moe else DENSE,
-        n_layers=c["num_hidden_layers"], d_model=c["hidden_size"],
+        name=c["name"], n_layers=c["num_hidden_layers"], d_model=c["hidden_size"],
         n_heads=c["num_attention_heads"], n_kv_heads=c["num_key_value_heads"],
-        d_head=c.get("head_dim"), d_ff=weights.expert_width(c),
-        vocab_size=c["vocab_size"], qk_norm=c.get("model_type") == "qwen3_moe",
+        d_head=c.get("head_dim"), vocab_size=c["vocab_size"],
         rope_theta=float(c["rope_theta"]), norm_eps=float(c["rms_norm_eps"]),
-        n_experts=c.get("num_experts", 0), top_k=c.get("num_experts_per_tok", 0),
         capacity_factor=float(c.get("assumed", {}).get("capacity_factor", 1.25)),
         moe_impl="capacity", tie_embeddings=bool(c["tie_word_embeddings"]),
-        param_dtype=c["torch_dtype"], compute_dtype=c["torch_dtype"])
+        param_dtype=c["torch_dtype"], compute_dtype=c["torch_dtype"], **fields)
 
 
 def prompt_pool(c: dict, t: dict, seed: int) -> List[np.ndarray]:

@@ -1,14 +1,22 @@
 """Find a cell's pieces by name: its entry in ``BENCHMARK.json``, its
 configuration file, its traffic file and the reader of each metric.
 
-Everything that belongs to one configuration, one traffic mix or one metric
-lives in a file of its own, so a cell or a metric is added by adding files
-and entries, never by editing one:
+Everything that belongs to one configuration, one architecture, one
+traffic mix or one metric lives in a file of its own, so a cell, a metric or
+a configuration of a new architecture is added by adding files and entries,
+never by editing one:
 
-- ``BENCHMARK.json``: the cells (``workloads``) and metrics;
+- ``BENCHMARK.json``: the cells (``workloads``), configurations and metrics;
 - the configuration named by ``configs[].file``: the published sizes as run
-  (Hugging Face keys), ``reduced``, ``assumed``, the deployment, the limits
-  of the correctness check;
+  (Hugging Face keys, ``model_type`` among them), ``reduced``, ``assumed``,
+  the deployment, the limits of the correctness check;
+- ``trimsbench/arch/<model_type>.py``: what the harness needs of the
+  architecture (``port_config``, the weights' ``layout`` and any leaf
+  ``KINDS`` of its own, the counts ``layer_params_per_token``,
+  ``request_flops`` and ``request_kernel_bounds``, the ``FAULTS`` it adds to
+  ``faults.py``'s, and ``tiny``, the sizes of its CPU tests);
+- ``trimsbench/refs/<model_type>.py``: its plain float32 forward,
+  ``final_hidden`` and ``logits``, built from ``reference.py``'s blocks;
 - ``trimsbench/traffic/<traffic>.json``: clients, request shape,
   tenants, their order, the device tier, warm-up and the check's sample;
 - ``trimsbench/metrics/<metric>.py``: one reader, ``read(run)``, that
@@ -16,13 +24,18 @@ and entries, never by editing one:
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 ROOT = Path(__file__).resolve().parents[1]
+HERE = Path(__file__).resolve().parent
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 
 
 @dataclass
@@ -43,14 +56,35 @@ class Cell:
     metrics: List[Metric]   # end-to-end ones first, then per-layer ones
 
 
-def _load_reader(root: Path, name: str) -> Callable:
-    path = root / "trimsbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"trimsbench_metric_{name}", path)
+def _load(path: Path, what: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(
+        f"trimsbench_{path.parent.name}_{path.stem}", path)
     if spec is None or not path.exists():
-        raise FileNotFoundError(f"metric {name!r} has no reader at {path}")
+        raise FileNotFoundError(f"{what} has no file at {path}")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def _load_reader(root: Path, name: str) -> Callable:
+    return _load(root / "trimsbench" / "metrics" / f"{name}.py", f"metric {name!r}").read
+
+
+@functools.lru_cache(maxsize=None)
+def _by_model_type(folder: str, model_type: str) -> ModuleType:
+    if not NAME.match(model_type):
+        raise ValueError(f"model_type {model_type!r} is not a name")
+    return _load(HERE / folder / f"{model_type}.py", f"model_type {model_type!r}")
+
+
+def arch(c: dict) -> ModuleType:
+    """``arch/<model_type>.py`` of the configuration ``c``."""
+    return _by_model_type("arch", c["model_type"])
+
+
+def refs(c: dict) -> ModuleType:
+    """``refs/<model_type>.py``: the plain reference of ``c``'s architecture."""
+    return _by_model_type("refs", c["model_type"])
 
 
 def _reports(entry: dict, cell: str) -> bool:

@@ -15,13 +15,6 @@ for p in (str(REPO), str(REPO / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-TINY_CONFIG = {
-    "deepseek-7b.l2": dict(hidden_size=64, intermediate_size=128, num_attention_heads=4,
-                           num_key_value_heads=4, vocab_size=512),
-    "qwen3-moe-30b-a3b.l2": dict(hidden_size=64, moe_intermediate_size=32,
-                                 num_attention_heads=4, num_key_value_heads=2, head_dim=16,
-                                 num_experts=8, num_experts_per_tok=2, vocab_size=500),
-}
 # the tiny copies serve in float32, where the port and the reference agree to
 # rounding (test_bench_reference.py): any gap above this is a fault
 TINY_LIMIT = 1e-3
@@ -33,14 +26,16 @@ TINY_TRAFFIC = {
 
 
 def make_tiny_root(dest: Path) -> Path:
-    """The benchmark under ``dest`` with tiny configurations and traffic."""
+    """The benchmark under ``dest`` with tiny traffic and configurations,
+    each cut to its architecture's sizes (``arch/<model_type>.py`` ``tiny``)."""
+    from trimsbench import spec
     shutil.copytree(REPO / "trimsbench", dest / "trimsbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
     for cfg in bench["configs"]:
         c = json.loads((REPO / cfg["file"]).read_text())
-        c.update(TINY_CONFIG[cfg["name"]], torch_dtype="float32",
+        c.update(spec.arch(c).tiny(c), torch_dtype="float32",
                  limits={"logit_gap_max": TINY_LIMIT, "logit_gap_mean": TINY_LIMIT})
         (dest / cfg["file"]).write_text(json.dumps(c))
     for name, cut in TINY_TRAFFIC.items():

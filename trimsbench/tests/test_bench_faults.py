@@ -21,7 +21,7 @@ from trimsbench.spec import load_cell
 
 CELLS = ["dsk7.faas_swap", "dsk7.faas_warm", "qmoe.decode_b32"]
 CASES = [(cell, fault) for cell in CELLS
-         for fault in faults.of_traffic(load_cell(cell).traffic)]
+         for fault in faults.of_cell(load_cell(cell).config, load_cell(cell).traffic)]
 
 
 def _run(root, cell, seed=21):
@@ -36,7 +36,7 @@ def test_a_sound_run_is_correct(tiny_root, cell):
 
 @pytest.mark.parametrize("cell, fault", CASES)
 def test_a_broken_timed_path_is_not_correct(tiny_root, monkeypatch, cell, fault):
-    for mod, attr, fn in faults.patches(fault):
+    for mod, attr, fn in faults.patches(fault, load_cell(cell, tiny_root).config):
         monkeypatch.setattr(mod, attr, fn)
     res = _run(tiny_root, cell)
     assert not res["correct"]

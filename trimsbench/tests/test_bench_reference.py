@@ -9,14 +9,14 @@ import json
 import pytest
 import torch
 
-from conftest import REPO, TINY_CONFIG
+from conftest import REPO
 from repro_torch.models import model as M
-from trimsbench import reference, serve, weights
+from trimsbench import reference, serve, spec, weights
 
 
 def _tiny(name, **kw):
     c = json.loads((REPO / f"trimsbench/configs/{name}.json").read_text())
-    c.update(TINY_CONFIG[name], **kw)
+    c.update(spec.arch(c).tiny(c), **kw)
     return c
 
 
