@@ -455,6 +455,7 @@ def kernel_phase(torch, F):
     q_timings(torch, F, kf, kd, kr, rnd, out)
     family_timings(torch, F, kf, kd, kr, rnd, out)
     train_shapes(torch, F, kf, kr, rnd, out)
+    mla_kernels(torch, F, kf, rnd, out)
     for name, e in errs.items():
         out[name]["max_abs_err"] = max(e)
         out[name]["q_max_abs_err"] = max(q_errs[name])
@@ -583,6 +584,112 @@ def family_timings(torch, F, kf, kd, kr, rnd, out):
     out["rmsnorm"]["family_shapes"] = [
         {**rmsnorm_times(torch, F, kr, rnd, shape, 1e-5), "shape": list(shape)}
         for shape in FAMILY_RMSNORM]
+
+
+# latent attention at moon.decode_b64's shapes: 16 heads, a latent of 512
+# and a RoPE part of 64, keys of 128 + 64 and values of 128; a batch of 64
+# over a cache of 2048 + 256 positions, read at its first, middle and last
+# decode step
+MLA_H, MLA_R, MLA_P, MLA_DK, MLA_DV = 16, 512, 64, 192, 128
+MLA_B, MLA_T, MLA_KV = 64, 2304, (2049, 2176, 2304)
+MLA_PREFILL = (4, 2048)   # flash timings: 4 of the cell's 64 prompts of 2048
+
+
+def mla_kernels(torch, F, kf, rnd, out):
+    """The kernels of latent attention against their plain versions, and
+    their times, as the rows ``out["mla_decode"]`` and
+    ``out["flash_attention"]["mla_prefill"]``.
+
+    ``mla_decode`` at the cell's shape (q (64, 16, 576), a (64, 2304) latent
+    cache) at each ``MLA_KV`` and at ragged lengths, bf16 (its only type):
+    kernel warm, cold and per call, its plain version, and the same heads
+    without absorption (each head's keys and values expanded in memory)
+    through SDPA as the yardstick. ``flash_attention`` with 192-wide q and k
+    and 128-wide values (a strided view, as ``mla_attention`` passes them),
+    causal, against its plain version in bf16 and float32 at ragged lengths;
+    its times over ``MLA_PREFILL``, the library call SDPA with the values
+    padded to 192, the port's prefill before the kernel took these widths."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import mla_decode as km
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    scale = MLA_DK ** -0.5
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = []
+    for dtype in (bf, torch.float32):
+        for (b, s, t) in ((2, 512, 512), (1, 200, 200), (1, 300, 129), (1, 1, 1)):
+            q, k = rnd(b, s, MLA_H, MLA_DK, dtype=dtype), rnd(b, t, MLA_H, MLA_DK, dtype=dtype)
+            v = rnd(b, t, MLA_H, 2 * MLA_DV, dtype=dtype)[..., MLA_DV:]
+            errs.append(check_close(torch, "flash_attention", kf.flash_attention(q, k, v),
+                                    kf.flash_attention_plain(q, k, v), dtype,
+                                    ("mla", b, s, t)))
+
+    def make_prefill():
+        b, s = MLA_PREFILL
+        return (rnd(b, s, MLA_H, MLA_DK, dtype=bf), rnd(b, s, MLA_H, MLA_DK, dtype=bf),
+                rnd(b, s, MLA_H, 2 * MLA_DV, dtype=bf)[..., MLA_DV:])
+
+    def sdpa_padded(a):
+        q, k, v = (x.transpose(1, 2) for x in a)
+        v = F.pad(v, (0, MLA_DK - MLA_DV))
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)[..., :MLA_DV]
+
+    b, s = MLA_PREFILL
+    qkv = make_prefill()
+    nbytes = b * s * MLA_H * (2 * MLA_DK + 2 * MLA_DV) * 2
+    sets = cold_copies(torch, make_prefill, nbytes)
+    r = {"ms": time_ms(torch, lambda: kf.flash_attention(*qkv)),
+         "cold_ms": time_ms(torch, [lambda a=a: kf.flash_attention(*a) for a in sets]),
+         "call_ms": call_ms(torch, lambda: kf.flash_attention(*qkv)),
+         "plain_ms": time_ms(torch, lambda: kf.flash_attention_plain(*qkv), reps=2, trials=3),
+         "library_ms": time_ms(torch, lambda: sdpa_padded(qkv)),
+         "cold_library_ms": time_ms(torch, [lambda a=a: sdpa_padded(a) for a in sets]),
+         "cold_copies": len(sets), "shape": [b, s, MLA_H, MLA_DK, MLA_DV],
+         "max_abs_err": max(errs)}
+    r["bound_ms"], r["bound_by"] = bound(nbytes,
+                                         2 * (MLA_DK + MLA_DV) * b * MLA_H * s * (s + 1) / 2)
+    out["flash_attention"]["mla_prefill"] = r
+    del qkv, sets
+
+    def make_latent():
+        return (rnd(MLA_B, MLA_T, 1, MLA_R, dtype=bf), rnd(MLA_B, MLA_T, 1, MLA_P, dtype=bf))
+
+    q = rnd(MLA_B, MLA_H, MLA_R + MLA_P, dtype=bf)
+    c, pe = make_latent()
+    ragged = torch.randint(0, MLA_T + 1, (MLA_B,), dtype=torch.int32, device=dev)
+    errs = [check_close(torch, "mla_decode", km.mla_decode(q, c, pe, ragged, scale),
+                        km.mla_decode_plain(q, c, pe, ragged, scale), bf, "ragged")]
+    sets = cold_copies(torch, make_latent, (c.numel() + pe.numel()) * 2)
+    rows = []
+    for kv in MLA_KV:
+        kv_len = torch.full((MLA_B,), kv, dtype=torch.int32, device=dev)
+        errs.append(check_close(torch, "mla_decode", km.mla_decode(q, c, pe, kv_len, scale),
+                                km.mla_decode_plain(q, c, pe, kv_len, scale), bf, kv))
+        kq = rnd(MLA_B, MLA_H, 1, MLA_DK, dtype=bf)
+        kk = rnd(MLA_B, MLA_H, kv, MLA_DK, dtype=bf)
+        vv = rnd(MLA_B, MLA_H, kv, MLA_DV, dtype=bf)
+        nb = 2 * (q.numel() + MLA_B * kv * (MLA_R + MLA_P) + MLA_B * MLA_H * MLA_R)
+        row = {"kv_len": kv,
+               "ms": time_ms(torch, lambda: km.mla_decode(q, c, pe, kv_len, scale)),
+               "cold_ms": time_ms(torch, [lambda a=a: km.mla_decode(q, *a, kv_len, scale)
+                                          for a in sets]),
+               "call_ms": call_ms(torch, lambda: km.mla_decode(q, c, pe, kv_len, scale)),
+               "plain_ms": time_ms(torch, lambda: km.mla_decode_plain(q, c, pe, kv_len, scale),
+                                   reps=2, trials=3),
+               "library_call_ms": call_ms(torch, lambda: F.scaled_dot_product_attention(
+                   kq, kk, vv, scale=scale))}
+        row["bound_ms"], row["bound_by"] = bound(
+            nb, 2.0 * MLA_B * MLA_H * kv * (2 * MLA_R + MLA_P))
+        rows.append(row)
+        del kk, vv
+    out["mla_decode"] = {"shape": [MLA_B, MLA_H, MLA_T, MLA_R, MLA_P], "rows": rows,
+                         "cold_copies": len(sets), "max_abs_err": max(errs),
+                         "n_split": km.plan_splits(MLA_T, MLA_B, n_sm)[0]}
+    log_path = sorted(_lib.build_dir().glob("*.log"))
+    if log_path:
+        text = log_path[-1].read_text()
+        i = text.find("== mla_decode.cu")
+        out["mla_decode"]["ptxas"] = [ln for ln in text[i:].splitlines()[:40] if i >= 0 and (
+            "registers" in ln or "spill" in ln)]
 
 
 TRAIN_B = 4            # phase 10's microbatch: batch 8 in 2 accumulation steps
@@ -775,14 +882,17 @@ def counts(ops) -> dict:
 KERNEL_NAMES = {"flash_attention": ("flash_fwd_tc", "flash_fwd_f32"),
                 "decode_attention": ("decode_split_kernel",),
                 "rmsnorm": ("rmsnorm_kernel",)}
+# and with latent attention's decode kernel (phase 6's model L)
+MLA_KERNEL_NAMES = {**KERNEL_NAMES, "mla_decode": ("mla_decode_kernel",)}
 
 
 @contextlib.contextmanager
-def launched(torch):
+def launched(torch, kernels=KERNEL_NAMES):
     """Each kernel's launches inside the block, read from a device trace of
     it: the engine replays a DENSE or MoE model's decode steps from a CUDA
     graph, whose kernels run without passing the wrappers that ``counts``
-    reads. Yields a dict, filled when the block ends. A trace on the H100
+    reads. Yields a dict of ``kernels``' counts, filled when the block
+    ends. A trace on the H100
     has lost the first device activity of its window (the first ~40
     kernels and copies of a request that began 10 ms in), so the block
     starts after 256 throwaway kernels, a sync and 50 ms."""
@@ -800,7 +910,7 @@ def launched(torch):
     cuda = torch.autograd.DeviceType.CUDA
     names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
     got.update({k: sum(any(p in n for p in pats) for n in names)
-                for k, pats in KERNEL_NAMES.items()})
+                for k, pats in kernels.items()})
 
 
 def path_launches(cfg, prefill: bool = True, new: int = NEW) -> dict:
@@ -809,8 +919,15 @@ def path_launches(cfg, prefill: bool = True, new: int = NEW) -> dict:
     (``new - 1``), and rmsnorm once per RMSNorm of a pass (two a layer or
     sublayer, one for a Mamba-2 layer without an FFN, two more with QK-norm:
     the query and key head norms; none in a layernorm model) plus the final
-    norm, for every pass that gives a token; a prefix hit runs no prefill."""
+    norm, for every pass that gives a token; a prefix hit runs no prefill.
+    Latent attention (``cfg.mla``) runs flash in prefill as well, the latent
+    decode kernel where the others run decode, and one more RMSNorm a
+    layer, the latent's."""
     steps = new if prefill else new - 1
+    if getattr(cfg, "mla", False):
+        return {"flash_attention": cfg.n_layers if prefill else 0, "decode_attention": 0,
+                "rmsnorm": (3 * cfg.n_layers + 1) * steps,
+                "mla_decode": cfg.n_layers * (new - 1)}
     fam = cfg.family
     if fam == "ssm":
         n_attn = 0
@@ -1313,6 +1430,78 @@ def moe_end_to_end(torch, engine, device):
 
 KEY_A = ("repro-torch", "A", "1")
 CLIENT_TIMEOUT_S = 180
+
+
+def moon_config():
+    """Model L: Moonlight-16B-A3B (the DeepSeek-V3 block; HF
+    moonshotai/Moonlight-16B-A3B config.json) at full width, cut to 3 of
+    its 27 layers: the leading dense one and two MoE layers. As the
+    benchmark runs it (``trimsbench/arch/deepseek_v3.py``): the head tied,
+    capacity dispatch at 1.25."""
+    from repro_torch.configs.base import MOE, ModelConfig
+    return ModelConfig(
+        name="moonlight-16b-a3b", family=MOE, n_layers=3, d_model=2048, n_heads=16,
+        n_kv_heads=16, vocab_size=163840, rope_theta=50000.0, norm_eps=1e-5,
+        capacity_factor=1.25, moe_impl="capacity", tie_embeddings=True,
+        param_dtype="bfloat16", compute_dtype="bfloat16", d_ff=1408, n_experts=64, top_k=6,
+        n_shared_experts=2, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, n_dense_layers=1, dense_d_ff=11264, router_scoring="sigmoid",
+        routed_scaling_factor=2.446)
+
+
+def moon_phase(torch, store_dir: Path, device, caps):
+    """Model L (``moon_config``) in a store of its own, through
+    ``publish_model``, the MRM and a batch engine: a disk hit, then a
+    device hit. Both requests' tokens must be equal; each request's
+    launches, read from a device trace (``launched`` with the latent decode
+    kernel), what its path implies (``path_launches``: flash once a layer
+    in prefill, ``mla_decode_kernel`` once a layer in every later step,
+    though the device hit replays every step from a CUDA graph), and the
+    cache it held the latent one (576 bf16 values a position and layer)."""
+    import numpy as np
+    from repro_torch.core import mrm as mrm_mod
+    from repro_torch.core.costmodel import get_hardware
+    from repro_torch.core.store import DiskStore
+    from repro_torch.serving import InferenceEngine
+
+    cfg = moon_config()
+    disk = DiskStore(str(store_dir))
+    t0 = time.perf_counter()
+    size = publish(torch, disk, cfg, "L", 4, device)
+    log(f"published L: {size} bytes in {time.perf_counter() - t0:.1f} s")
+    engine = InferenceEngine(disk, mrm_mod.MRM(disk, device_capacity=caps[0],
+                                               host_capacity=caps[1], hw=get_hardware(),
+                                               device=device), device=device)
+    toks = prompt(cfg.vocab_size)
+    want = path_launches(cfg)
+    cache_bytes = cfg.n_layers * B * (PROMPT + NEW) * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+    out = {"model": cfg.name, "n_layers": cfg.n_layers, "bytes": size, "want": want,
+           "launches": [], "requests": []}
+    tokens = []
+    for tier in ("disk", "device"):
+        with launched(torch, MLA_KERNEL_NAMES) as n:
+            got, st = engine.generate("L", toks, NEW)
+        log(json.dumps({"moon_request": len(tokens) + 1, "launches": n,
+                        **dataclasses.asdict(st)}))
+        out["launches"].append(n)
+        out["requests"].append(dataclasses.asdict(st))
+        if st.tier_hit != tier:
+            raise AssertionError(f"L: a {st.tier_hit} hit where a {tier} hit was due")
+        if got.shape != (B, NEW) or got.min() < 0 or got.max() >= cfg.vocab_size:
+            raise AssertionError(f"L: bad tokens {got.shape} {got.min()}..{got.max()}")
+        if tokens and not np.array_equal(got, tokens[0]):
+            raise AssertionError("L: the device hit's tokens differ from the disk hit's")
+        if n != want:
+            raise AssertionError(f"L {tier} hit: launches {n}, the path implies {want}")
+        if st.cache_bytes != cache_bytes:
+            raise AssertionError(f"L: the request held {st.cache_bytes} B of cache, the "
+                                 f"latent cache is {cache_bytes} B")
+        tokens.append(got)
+    if out["requests"][1]["graph_steps"] != NEW - 1:
+        raise AssertionError(f"L: the device hit replayed {out['requests'][1]['graph_steps']} "
+                             f"of {NEW - 1} decode steps")
+    out["tokens_sha1"] = tokens_sha1(tokens[0])
+    return out
 
 
 def greedy(torch, cfg, weights, toks, device):
@@ -3436,6 +3625,17 @@ def main() -> int:
         finally:
             shutil.rmtree(moe_dir, ignore_errors=True)
 
+        # 6b. latent attention: model L, Moonlight-16B-A3B at full width, 3 layers
+        moon_dir = ROOT / "build" / "smoke_store_moon"
+        shutil.rmtree(moon_dir, ignore_errors=True)
+        try:
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            moon = moon_phase(torch, moon_dir, device, (8 * GiB, 8 * GiB))
+            log(f"phase 6b passed in {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(moon_dir, ignore_errors=True)
+
         # 7. the CLOUD tier, cross-process sharing and FaaS, over phase 3's store
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3515,18 +3715,22 @@ def main() -> int:
                       **{x: y for x, y in k.items() if x not in (
                           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                           "max_abs_err")}})
+    table.append({"name": "mla_decode", "route": "cuda",
+                  "source": "src/repro_torch/csrc/mla_decode.cu", "replaces": None, "moon_launches": moon["launches"][1]["mla_decode"],
+                  **kern["mla_decode"]})
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": table, "serve": summary, "end_to_end": e2e,
-             "stream": stream, "moe": moe, "cloud": cloud, "ipc": ipc, "faas": faas,
+             "stream": stream, "moe": moe, "moon": moon, "cloud": cloud, "ipc": ipc, "faas": faas,
              "cluster": cluster, "families": families, "train": train, "mesh": mesh,
              "zoo": zoo, "examples": examples,
              "build_seconds": _lib.build_seconds, "first_port_ms": FIRST_PORT_MS}, indent=1))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"moon": moon}))
     print(json.dumps({"ipc": ipc}))
     print(json.dumps({"cloud": cloud}))
     print(json.dumps({"faas": faas}))

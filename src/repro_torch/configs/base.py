@@ -5,11 +5,19 @@ Same fields, defaults and derived properties as the JAX package's
 published ``.trims`` file carries from either package. ``pdtype``/``cdtype``
 return torch dtypes; ``use_pallas`` is kept for meta compatibility and is
 ignored (the port picks its kernels by the tensor's device).
+
+The port's own settings, which the JAX package has no counterpart of
+(latent attention, leading dense layers of the MOE family, sigmoid
+routing: ``EXTRAS``), are ``InitVar``s that ``__post_init__`` keeps as
+attributes. ``dataclasses.asdict`` and ``fields`` leave them out, so a
+configuration that keeps them at their defaults is the JAX package's field
+for field; :meth:`ModelConfig.to_dict` adds those set otherwise, and
+equality compares it. ``replace`` carries them over.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, field
+from dataclasses import InitVar, dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -21,6 +29,19 @@ HYBRID = "hybrid"   # interleaved mamba + attention (Jamba)
 SSM = "ssm"         # pure Mamba-2
 ENCDEC = "encdec"   # encoder-decoder (seamless; audio frontend stubbed)
 VLM = "vlm"         # decoder + interleaved cross-attention (vision stubbed)
+
+# the port's settings beyond the JAX package's fields, with their defaults
+EXTRAS = {
+    "kv_lora_rank": 0,              # latent attention (MLA) where > 0: the cached latent width;
+                                    # its RoPE takes interleaved pairs (DeepSeek-V3)
+    "qk_nope_head_dim": 0,          # MLA: a head's query/key width without RoPE
+    "qk_rope_head_dim": 0,          # MLA: its width with RoPE (one key part shared by all heads)
+    "v_head_dim": 0,                # MLA: a head's value width
+    "n_dense_layers": 0,            # MOE: leading layers with a dense MLP of ``dense_d_ff``
+    "dense_d_ff": 0,
+    "router_scoring": "softmax",    # "softmax" | "sigmoid" (top-k on score + ``router_bias``)
+    "routed_scaling_factor": 1.0,   # sigmoid: the normalised top-k weights are scaled by it
+}
 
 
 @dataclass(frozen=True)
@@ -75,8 +96,54 @@ class ModelConfig:
     logits_chunk: int = 0                 # 0 = unchunked vocab projection
     opt_moment_dtype: str = "float32"     # "bfloat16" shaves optimizer HBM for >100B models
     source: str = ""                      # provenance [source; verified-tier]
+    # the port's own (``EXTRAS``) ------------------------------------------------
+    kv_lora_rank: InitVar[int] = 0
+    qk_nope_head_dim: InitVar[int] = 0
+    qk_rope_head_dim: InitVar[int] = 0
+    v_head_dim: InitVar[int] = 0
+    n_dense_layers: InitVar[int] = 0
+    dense_d_ff: InitVar[int] = 0
+    router_scoring: InitVar[str] = "softmax"
+    routed_scaling_factor: InitVar[float] = 1.0
+
+    def __post_init__(self, *extras):
+        for name, value in zip(EXTRAS, extras):
+            object.__setattr__(self, name, value)
+        if self.router_scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"router_scoring {self.router_scoring!r}")
+        if self.kv_lora_rank and not (self.qk_nope_head_dim and self.qk_rope_head_dim
+                                      and self.v_head_dim):
+            raise ValueError("latent attention needs qk_nope_head_dim, qk_rope_head_dim "
+                             "and v_head_dim")
+        if self.n_dense_layers and (self.family != MOE or not self.dense_d_ff
+                                    or self.n_dense_layers >= self.n_layers):
+            raise ValueError("leading dense layers are the MOE family's, need dense_d_ff "
+                             "and leave at least one MoE layer")
+
+    def to_dict(self) -> dict:
+        """``dataclasses.asdict`` and every setting of ``EXTRAS`` that is not
+        its default: what a published file's meta carries, and what the
+        engine's signature hashes."""
+        out = dataclasses.asdict(self)
+        out.update({k: getattr(self, k) for k, d in EXTRAS.items() if getattr(self, k) != d})
+        return out
+
+    def __eq__(self, other):
+        return isinstance(other, ModelConfig) and self.to_dict() == other.to_dict()
 
     # derived ----------------------------------------------------------------
+    @property
+    def mla(self) -> bool:
+        """Latent attention: a cache of ``kv_lora_rank + qk_rope_head_dim``
+        values a position, shared by every head."""
+        return self.kv_lora_rank > 0
+
+    @property
+    def n_moe_stack(self) -> int:
+        """Layers stacked under ``layers`` (the MOE family's leading dense
+        layers are stacked apart, under ``dense_layers``)."""
+        return self.n_layers - self.n_dense_layers
+
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
@@ -148,12 +215,19 @@ class ModelConfig:
         """Analytic parameter count (matches init; used for 6ND and sizing)."""
         d, hd = self.d_model, self.head_dim
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.mla:
+            H, r, rope = self.n_heads, self.kv_lora_rank, self.qk_rope_head_dim
+            attn = (d * H * (self.qk_nope_head_dim + rope) + d * (r + rope) + r
+                    + r * H * (self.qk_nope_head_dim + self.v_head_dim)
+                    + H * self.v_head_dim * d)
         if self.qkv_bias:
             attn += self.q_dim + 2 * self.kv_dim
         ffn_dense = 3 * d * self.d_ff  # SwiGLU: gate, up, down
         moe = 0
         if self.n_experts:
             moe = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+            if self.router_scoring == "sigmoid":
+                moe += self.n_experts                 # router_bias
             if self.n_shared_experts:
                 moe += self.n_shared_experts * 3 * d * self.d_ff
         norm = 2 * d if self.norm_type == "rmsnorm" else (0 if self.norm_type == "nonparametric_ln" else 4 * d)
@@ -180,7 +254,9 @@ class ModelConfig:
         if self.family in (DENSE,):
             total += self.n_layers * layer_cost("attn", False)
         elif self.family == MOE:
-            total += self.n_layers * layer_cost("attn", True)
+            total += self.n_moe_stack * layer_cost("attn", True)
+            total += self.n_dense_layers * (layer_cost("attn", True) - moe
+                                            + 3 * d * self.dense_d_ff)
         elif self.family == SSM:
             # mamba2 block has no separate FFN
             total += self.n_layers * (ssm + d)
@@ -215,7 +291,7 @@ class ModelConfig:
         if not self.n_experts:
             return 0
         if self.family == MOE:
-            return self.n_layers
+            return self.n_moe_stack
         if self.family == HYBRID:
             period = self.attn_every
             per_period = sum(1 for i in range(period)

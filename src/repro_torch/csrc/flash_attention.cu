@@ -35,6 +35,13 @@
 //   to -inf explicitly. Head dims below the template's are zero-filled by
 //   TMA, which leaves the products unchanged.
 //
+// The template takes the key width DK and the value width DV apart. Equal
+// widths (64, 128) serve every GQA model; DK 192 with DV 128 is latent
+// attention's prefill (DeepSeek-V3's non-absorbed form: each head's key is
+// 128 values expanded from the latent plus the 64 RoPE values, its value
+// 128). There q and K arrive as three 64-column boxes and V as two, and
+// the output is DV wide; the fragments a thread holds are those of D = 128.
+//
 // float32 inputs are not on the serving path and wgmma would read them as
 // TF32, which breaks the fp32 tolerance of 1e-4. They take the SIMT kernel
 // below, chosen by dtype: an explicit dispatch, not a fallback.
@@ -60,14 +67,16 @@ constexpr int CONSUMER_WARPS = 8;       // two warpgroups
 constexpr int TC_THREADS = CONSUMER_WARPS * 32 + 32;   // + one producer warp
 constexpr int ROW_BYTES = 128;          // one swizzled box row: 64 bf16
 
-template <int D>
+template <int DK, int DV>
 struct TcLayout {
-  static constexpr int STRIPS = D / 64;                  // 64-column boxes per row
+  static constexpr int K_STRIPS = DK / 64;               // 64-column boxes of a q or K row
+  static constexpr int V_STRIPS = DV / 64;               // of a V row
   static constexpr int Q_STRIP = BQ * ROW_BYTES;         // bytes of one q box
   static constexpr int KV_STRIP = BKV * ROW_BYTES;       // bytes of one K or V box
-  static constexpr int Q_BYTES = STRIPS * Q_STRIP;
-  static constexpr int KV_BYTES = STRIPS * KV_STRIP;     // K or V tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int Q_BYTES = K_STRIPS * Q_STRIP;
+  static constexpr int K_BYTES = K_STRIPS * KV_STRIP;    // K tile
+  static constexpr int V_BYTES = V_STRIPS * KV_STRIP;    // V tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;   // + alignment slack
 };
 
@@ -105,13 +114,13 @@ struct Tile {
 
 // Consumer warpgroups: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64);
 // this thread holds rows r_lo and r_lo + 8 of the accumulator fragments.
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void consume(const Tile& tile, __nv_bfloat16* __restrict__ o,
                                         uint32_t sq, uint32_t bar_q, uint32_t bar_full0,
                                         uint32_t bar_empty0, int S, int Tn, int Dv,
                                         long long osb, long long oss, long long osh,
                                         float scale_log2, int causal) {
-  using L = TcLayout<D>;
+  using L = TcLayout<DK, DV>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int cpair = (lane & 3) * 2;
@@ -120,22 +129,22 @@ __device__ __forceinline__ void consume(const Tile& tile, __nv_bfloat16* __restr
   const int row_min = q0 + wg * 64;
   const int r_lo = row_min + (warp & 3) * 16 + (lane >> 2);
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   mbar_wait(bar_q, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % STAGES;
-    const uint32_t sk = sq + L::Q_BYTES + s * L::STAGE_BYTES, sv = sk + L::KV_BYTES;
+    const uint32_t sk = sq + L::Q_BYTES + s * L::STAGE_BYTES, sv = sk + L::K_BYTES;
     mbar_wait(bar_full0 + 8 * s, (j / STAGES) & 1);
 
-    // S = Q K^T over D in k16 steps; step kk reads box kk / 4 at byte 32 (kk % 4)
+    // S = Q K^T over DK in k16 steps; step kk reads box kk / 4 at byte 32 (kk % 4)
     float sc[BKV / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const uint32_t off = (kk & 3) * 32;
       const uint64_t da = desc_sw128(sq_wg + (kk >> 2) * L::Q_STRIP + off, 16, 1024);
       const uint64_t db = desc_sw128(sk + (kk >> 2) * L::KV_STRIP + off, 16, 1024);
@@ -179,7 +188,7 @@ __device__ __forceinline__ void consume(const Tile& tile, __nv_bfloat16* __restr
       l[r] += p;
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     // P as the A operand: k16 step kk takes n8 blocks 2 kk and 2 kk + 1
     uint32_t pa[BKV / 16][4];
@@ -196,7 +205,7 @@ __device__ __forceinline__ void consume(const Tile& tile, __nv_bfloat16* __restr
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      pv_product<D>(acc, pa[kk], desc_sw128(sv + kk * 16 * ROW_BYTES, L::KV_STRIP, 1024));
+      pv_product<DV>(acc, pa[kk], desc_sw128(sv + kk * 16 * ROW_BYTES, L::KV_STRIP, 1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -213,7 +222,7 @@ __device__ __forceinline__ void consume(const Tile& tile, __nv_bfloat16* __restr
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
 #pragma unroll
-  for (int jn = 0; jn < D / 8; ++jn) {
+  for (int jn = 0; jn < DV / 8; ++jn) {
     const int col = jn * 8 + cpair;
     if (col >= Dv) continue;
 #pragma unroll
@@ -228,13 +237,13 @@ __device__ __forceinline__ void consume(const Tile& tile, __nv_bfloat16* __restr
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int B,
              int Hq, int S, int Tn, int group, int Dv, long long osb, long long oss,
              long long osh, float scale_log2, int causal) {
-  using L = TcLayout<D>;
+  using L = TcLayout<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];   // q full, K/V full[], empty[]
 
@@ -264,22 +273,23 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       prefetch_tensormap(&vmap);
       const int hk = tile.h / group;
       mbar_expect_tx(bar_q, L::Q_BYTES);
-      for (int c = 0; c < L::STRIPS; ++c)
+      for (int c = 0; c < L::K_STRIPS; ++c)
         tma_load_4d(sq + c * L::Q_STRIP, &qmap, bar_q, c * 64, tile.h, tile.q0, tile.b);
       for (int j = 0; j < tile.n_kv; ++j) {
         const int s = j % STAGES;
         mbar_wait(bar_empty0 + 8 * s, ((j / STAGES) & 1) ^ 1);
-        const uint32_t sk = sq + L::Q_BYTES + s * L::STAGE_BYTES, sv = sk + L::KV_BYTES;
+        const uint32_t sk = sq + L::Q_BYTES + s * L::STAGE_BYTES, sv = sk + L::K_BYTES;
         const uint32_t full = bar_full0 + 8 * s;
-        mbar_expect_tx(full, 2 * L::KV_BYTES);
-        for (int c = 0; c < L::STRIPS; ++c) {
+        mbar_expect_tx(full, L::STAGE_BYTES);
+        for (int c = 0; c < L::K_STRIPS; ++c) {
           tma_load_4d(sk + c * L::KV_STRIP, &kmap, full, c * 64, hk, j * BKV, tile.b);
-          tma_load_4d(sv + c * L::KV_STRIP, &vmap, full, c * 64, hk, j * BKV, tile.b);
+          if (c < L::V_STRIPS)
+            tma_load_4d(sv + c * L::KV_STRIP, &vmap, full, c * 64, hk, j * BKV, tile.b);
         }
       }
     }
   } else {
-    consume<D>(tile, o, sq, bar_q, bar_full0, bar_empty0, S, Tn, Dv, osb, oss, osh, scale_log2,
+    consume<DK, DV>(tile, o, sq, bar_q, bar_full0, bar_empty0, S, Tn, Dv, osb, oss, osh, scale_log2,
                causal);
   }
 }
@@ -320,23 +330,24 @@ bool encode_bshd(CUtensorMap* map, const void* ptr, long long B, long long Lr, l
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// Dk, Dv: the key and value widths of the tensors, at most DK and DV
+template <int DK, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, long long B, long long S,
-              long long Tn, long long Hq, long long Hkv, long long Dv, const long long* st,
-              float scale, int causal, cudaStream_t stream) {
+              long long Tn, long long Hq, long long Hkv, long long Dk, long long Dv,
+              const long long* st, float scale, int causal, cudaStream_t stream) {
   static bool ready = false;   // per instantiation
   if (!ready) {
-    cudaError_t e = trims::allow_smem(flash_fwd_tc<D>, TcLayout<D>::SMEM);
+    cudaError_t e = trims::allow_smem(flash_fwd_tc<DK, DV>, TcLayout<DK, DV>::SMEM);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
   CUtensorMap qm, km, vm;
-  if (!encode_bshd(&qm, q, B, S, Hq, Dv, st[0], st[1], st[2], BQ) ||
-      !encode_bshd(&km, k, B, Tn, Hkv, Dv, st[3], st[4], st[5], BKV) ||
+  if (!encode_bshd(&qm, q, B, S, Hq, Dk, st[0], st[1], st[2], BQ) ||
+      !encode_bshd(&km, k, B, Tn, Hkv, Dk, st[3], st[4], st[5], BKV) ||
       !encode_bshd(&vm, v, B, Tn, Hkv, Dv, st[6], st[7], st[8], BKV))
     return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((S + BQ - 1) / BQ * B * Hq);   // one CTA per tile
-  flash_fwd_tc<D><<<grid, TC_THREADS, TcLayout<D>::SMEM, stream>>>(
+  flash_fwd_tc<DK, DV><<<grid, TC_THREADS, TcLayout<DK, DV>::SMEM, stream>>>(
       qm, km, vm, (__nv_bfloat16*)o, (int)B, (int)Hq, (int)S, (int)Tn, (int)(Hq / Hkv), (int)Dv,
       st[9], st[10], st[11], scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
@@ -362,7 +373,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(NT32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int S, int Tn, int group, int D,
-              long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+              int Dv, long long qsb, long long qss, long long qsh, long long ksb, long long kss,
               long long ksh, long long vsb, long long vss, long long vsh, long long osb,
               long long oss, long long osh, float scale, int causal) {
   constexpr int QP = DMAX + 1;  // padded row stride: rows land on different banks
@@ -400,9 +411,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // everyone is done with the previous K/V tile
     for (int i = tid; i < BK32 * DMAX; i += NT32) {
       const int c = i / DMAX, d = i % DMAX;
-      const bool ok = k0 + c < Tn && d < D;
-      Ks[c * QP + d] = ok ? kb[(long long)(k0 + c) * kss + d] : 0.f;
-      Vs[c * DMAX + d] = ok ? vb[(long long)(k0 + c) * vss + d] : 0.f;
+      const bool ok = k0 + c < Tn;
+      Ks[c * QP + d] = ok && d < D ? kb[(long long)(k0 + c) * kss + d] : 0.f;
+      Vs[c * DMAX + d] = ok && d < Dv ? vb[(long long)(k0 + c) * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -458,15 +469,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const int d = cq + 4 * i;
-      if (d < D) ob[d] = acc[i] * inv;
+      if (d < Dv) ob[d] = acc[i] * inv;
     }
   }
 }
 
 template <int DMAX>
 int launch_f32(const void* q, const void* k, const void* v, void* o, long long B, long long S,
-               long long Tn, long long Hq, long long Hkv, long long D, const long long* st,
-               float scale, int causal, cudaStream_t stream) {
+               long long Tn, long long Hq, long long Hkv, long long D, long long Dv,
+               const long long* st, float scale, int causal, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DMAX>() * (int)sizeof(float);
   static bool ready = false;  // per instantiation
   if (!ready) {
@@ -477,7 +488,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, long long B
   dim3 grid((unsigned)((S + BQ32 - 1) / BQ32), (unsigned)Hq, (unsigned)B);
   flash_fwd_f32<DMAX><<<grid, NT32, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, (int)S, (int)Tn,
-      (int)(Hq / Hkv), (int)D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      (int)(Hq / Hkv), (int)D, (int)Dv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], scale, causal);
   return (int)cudaGetLastError();
 }
@@ -485,25 +496,37 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, long long B
 }  // namespace
 
 // strides: 12 values, (batch, seq, head) for q, k, v, o in that order; the
-// head dim is contiguous. bf16 takes the TMA + wgmma kernel (the caller has
-// checked that TMA can read q, k and v: 16-byte aligned base and strides,
-// T > 0); float32 takes the SIMT kernel.
+// head dim is contiguous. D is the width of q and k, Dv that of v and o:
+// equal and at most 128, or D in (128, 192] with Dv at most 128 (latent
+// attention). bf16 takes the TMA + wgmma kernel (the caller has checked
+// that TMA can read q, k and v: 16-byte aligned base and strides, T > 0);
+// float32 takes the SIMT kernel.
 extern "C" int trims_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      long long B, long long S, long long Tn, long long Hq,
-                                     long long Hkv, long long D, const long long* strides,
-                                     float scale, int causal, int dtype, void* stream) {
+                                     long long Hkv, long long D, long long Dv,
+                                     const long long* strides, float scale, int causal, int dtype,
+                                     void* stream) {
   if (B <= 0 || S <= 0 || Hq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 128) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || Dv <= 0) return (int)cudaErrorInvalidValue;
+  const bool wide = D > 128 && D <= 192 && Dv <= 128;   // latent attention's prefill
+  if (!wide && (D > 128 || Dv != D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == trims::kBF16) {
     if (Tn <= 0) return (int)cudaErrorInvalidValue;
-    if (D <= 64) return launch_tc<64>(q, k, v, o, B, S, Tn, Hq, Hkv, D, strides, scale, causal, st);
-    return launch_tc<128>(q, k, v, o, B, S, Tn, Hq, Hkv, D, strides, scale, causal, st);
+    if (wide)
+      return launch_tc<192, 128>(q, k, v, o, B, S, Tn, Hq, Hkv, D, Dv, strides, scale, causal, st);
+    if (D <= 64)
+      return launch_tc<64, 64>(q, k, v, o, B, S, Tn, Hq, Hkv, D, Dv, strides, scale, causal, st);
+    return launch_tc<128, 128>(q, k, v, o, B, S, Tn, Hq, Hkv, D, Dv, strides, scale, causal, st);
   }
   if (dtype == trims::kF32) {
-    if (D <= 32) return launch_f32<32>(q, k, v, o, B, S, Tn, Hq, Hkv, D, strides, scale, causal, st);
-    if (D <= 64) return launch_f32<64>(q, k, v, o, B, S, Tn, Hq, Hkv, D, strides, scale, causal, st);
-    return launch_f32<128>(q, k, v, o, B, S, Tn, Hq, Hkv, D, strides, scale, causal, st);
+    if (wide)
+      return launch_f32<192>(q, k, v, o, B, S, Tn, Hq, Hkv, D, Dv, strides, scale, causal, st);
+    if (D <= 32)
+      return launch_f32<32>(q, k, v, o, B, S, Tn, Hq, Hkv, D, Dv, strides, scale, causal, st);
+    if (D <= 64)
+      return launch_f32<64>(q, k, v, o, B, S, Tn, Hq, Hkv, D, Dv, strides, scale, causal, st);
+    return launch_f32<128>(q, k, v, o, B, S, Tn, Hq, Hkv, D, Dv, strides, scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -100,12 +100,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.trims_rmsnorm.argtypes = [p, p, p, i64, i64, i64, f32, i32, i32, i32, i32, i32,
                                   i32, p]
     lib.trims_rmsnorm.restype = i32
-    lib.trims_flash_attention.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64,
+    lib.trims_flash_attention.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i64,
                                           p, f32, i32, i32, p]
     lib.trims_flash_attention.restype = i32
     lib.trims_decode_attention.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64,
                                            p, f32, i32, i32, i32, p]
     lib.trims_decode_attention.restype = i32
+    lib.trims_mla_decode.argtypes = [p, p, p, p, p, i64, i64, p, f32, i32, i32, p]
+    lib.trims_mla_decode.restype = i32
 
 
 def load() -> ctypes.CDLL:

@@ -19,7 +19,10 @@ multiples of 16 bytes (:func:`tma_strides` checks, and the wrapper raises
 where they are not). For contiguous inputs that means a head dim that is a
 multiple of 8: D = 100 in bf16 raises, while float32 and the plain version
 take it. Head dims below 64 or between 64 and 128 are zero-filled to the
-kernel's 64 or 128. With no keys (T == 0) every row is 0, and the wrapper
+kernel's 64 or 128. Latent attention's prefill gives q and k a head dim of
+up to 192 and v one of up to 128: the kernel instantiated for 192-wide keys
+and 128-wide values takes it, scaled by ``1/sqrt`` of the key width, and
+the output has the value's width. With no keys (T == 0) every row is 0, and the wrapper
 returns zeros without a launch. float32 takes a SIMT kernel (fp32 FMAs),
 chosen by dtype: the tensor cores would read it as TF32. See the note in
 the source.
@@ -40,7 +43,8 @@ _count_lock = threading.Lock()
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True) -> torch.Tensor:
-    """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D), fp32 inside."""
+    """q: (B, S, Hq, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv) -> (B, S, Hq, Dv),
+    fp32 inside."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -51,7 +55,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)   # fully masked row -> 0
     o = torch.einsum("bhgst,bthd->bshgd", p, v.float())
-    return o.reshape(B, S, Hq, D).to(q.dtype)
+    return o.reshape(B, S, Hq, v.shape[3]).to(q.dtype)
 
 
 def _strides(t: torch.Tensor):
@@ -89,22 +93,25 @@ def tma_strides(t: torch.Tensor, name: str = "tensor"):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D). A CPU tensor
+    """q: (B, S, Hq, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv) -> (B, S, Hq, Dv),
+    with Dv = D up to 128, or D up to 192 and Dv up to 128. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises."""
     global launches
     if q.device.type in ("cpu", "meta"):     # meta: shapes only (the dry run)
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on {v.device}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if D > 128:
-        raise ValueError(f"flash_attention: head dim {D} > 128 is not supported")
+    Dv = v.shape[3]
+    if not (D == Dv <= 128 or (128 < D <= 192 and Dv <= 128)):
+        raise ValueError(f"flash_attention: head dims {D} (q, k) and {Dv} (v) are not "
+                         "supported: equal and at most 128, or at most 192 and 128")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
@@ -112,16 +119,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _lib.dtype_code(q.dtype)
     if code == _lib.BF16:
         if T == 0:   # no keys: every row is 0, as in the plain version
-            return torch.zeros(B, S, Hq, D, dtype=q.dtype, device=q.device)
+            return torch.zeros(B, S, Hq, Dv, dtype=q.dtype, device=q.device)
         ins = [tma_strides(t, n) if t.numel() else _strides(t)
                for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     else:
         ins = [_strides(t) for t in (q, k, v)]
-    out = torch.empty(B, S, Hq, D, dtype=q.dtype, device=q.device)
+    out = torch.empty(B, S, Hq, Dv, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*ins[0], *ins[1], *ins[2], *_strides(out))
     lib = _lib.load()
     rc = lib.trims_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                   B, S, T, Hq, Hkv, D, strides, 1.0 / math.sqrt(D),
+                                   B, S, T, Hq, Hkv, D, Dv, strides, 1.0 / math.sqrt(D),
                                    int(causal), code, _lib.stream_ptr(q))
     _lib.check(rc, "trims_flash_attention")
     with _count_lock:

@@ -35,14 +35,16 @@ from torch.autograd.function import once_differentiable
 from repro_torch.device import is_distributed
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
 
-KERNEL_MODULES = (_flash, _decode, _rmsnorm)
+KERNEL_MODULES = (_flash, _decode, _rmsnorm)   # the ports of the JAX package's Pallas kernels
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Causal or full GQA attention, q: (B, S, Hq, D); k, v: (B, T, Hkv, D).
+    """Causal or full GQA attention, q: (B, S, Hq, D); k: (B, T, Hkv, D);
+    v: (B, T, Hkv, Dv), Dv = D or, for latent attention, narrower.
     Backward: the VJP of ``ref.mha_reference`` in its (B, H, S, D) layout,
     recomputed from the saved q, k, v (``_flash_bwd`` of the reference)."""
 
@@ -86,7 +88,8 @@ class RmsnormFn(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) -> (B, S, Hq, D). Differentiable."""
+    """q: (B, S, Hq, D); k: (B, T, Hkv, D); v: (B, T, Hkv, Dv) -> (B, S, Hq, Dv).
+    Differentiable."""
     if is_distributed(q):
         return local_attention(lambda q, k, v: FlashAttentionFn.apply(q, k, v, causal),
                                 q, k, v)
@@ -110,6 +113,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     else:
         out = _decode.decode_attention(q[:, 0] if squeeze else q, k_cache, v_cache, kv_len)
     return out[:, None] if squeeze else out
+
+
+def mla_decode(q: torch.Tensor, c_kv: torch.Tensor, k_pe: torch.Tensor,
+               kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+    """Latent attention of one token: q (B, H, r + rope) against the latent
+    cache c_kv (B, T, 1, r), k_pe (B, T, 1, rope) -> (B, H, r).
+    Inference-only; no mesh (a DTensor raises in the wrapper)."""
+    return _mla.mla_decode(q, c_kv, k_pe, kv_len, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -209,5 +220,5 @@ def local_attention(kernel, q, k, v, kv_len=None, squeeze_q=False):
 
 
 def reset_launches() -> None:
-    for m in KERNEL_MODULES:
+    for m in (*KERNEL_MODULES, _mla):
         m.launches = 0

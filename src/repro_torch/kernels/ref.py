@@ -27,7 +27,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask[None, None, None], s, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgst,bhtd->bhgsd", p.to(q.dtype), v)
-    return o.reshape(B, Hq, S, D)
+    return o.reshape(B, Hq, S, v.shape[-1])
 
 
 def decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Dense layers in PyTorch: norms, RoPE, GQA attention, SwiGLU.
+"""Dense layers in PyTorch: norms, RoPE, GQA attention, latent attention
+(MLA), SwiGLU.
 
 Mirrors the JAX package's ``models/layers.py`` (dense parts). Parameters are
 plain dicts of tensors in the ``.trims`` layout: weights are ``(in, out)``
@@ -8,6 +9,16 @@ identity with no mesh, a ``DTensor`` redistribution under one. On CUDA the
 rmsnorms, prefill attention and decode attention go through the
 hand-written kernels (``repro_torch.kernels``); on the CPU the same
 functions take their plain versions.
+
+Latent attention (MLA, DeepSeek-V2/V3; the port's own, the JAX package has
+none) projects each token to a latent ``c_kv`` of ``kv_lora_rank`` values,
+normed, and one RoPE key part ``k_pe`` shared by the heads; the decode cache
+holds those two and nothing per head. Prefill expands the latent into each
+head's keys and values (the non-absorbed form, through the ``flash_fwd``
+kernel instantiated for 192-wide keys and 128-wide values); a decode step folds the key expansion
+into the query and the value expansion into the output (the absorbed form)
+and attends over the latent cache with the ``mla_decode`` kernel
+(``docs/TORCH_DESIGN.md`` section 10).
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import partitioning as part
+from repro_torch.runtime import trace
 
 Params = Dict[str, torch.Tensor]
 
@@ -84,10 +96,15 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               interleave: bool = False) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S). Split
-    halves, not interleaved pairs."""
+    halves; with ``interleave``, pairs (2i, 2i + 1) are rotated by frequency
+    i and the result is laid out as split halves (DeepSeek-V3's modeling
+    code de-interleaves before ``rotate_half``)."""
     hd = x.shape[-1]
+    if interleave:
+        x = x.unflatten(-1, (hd // 2, 2)).transpose(-1, -2).flatten(-2)
     freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
     angles = positions[..., None].float() * freqs            # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, hd/2)
@@ -223,11 +240,92 @@ def attention_out(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+MLA_NORM_EPS = 1e-6     # the latent's RMSNorm: DeepSeek-V3 builds it with the default eps
+
+
+def init_mla(cfg: ModelConfig, lead: Tuple[int, ...], generator, device) -> Params:
+    """``wq`` (d, H * (nope + rope)), ``w_kv_a`` (d, r + rope), ``kv_norm``
+    (r,), ``w_kv_b`` (r, H * (nope + v)) and ``wo`` (H * v, d); each head's
+    columns are contiguous, nope first."""
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = cfg.pdtype
+    return {"wq": dense_init((*lead, d, H * (dn + dr)), dt, generator, device),
+            "w_kv_a": dense_init((*lead, d, r + dr), dt, generator, device),
+            "kv_norm": torch.ones(*lead, r, dtype=dt, device=device),
+            "w_kv_b": dense_init((*lead, r, H * (dn + dv)), dt, generator, device),
+            "wo": dense_init((*lead, H * dv, d), dt, generator, device,
+                             scale=1.0 / math.sqrt(H * dv * 2 * cfg.n_layers))}
+
+
+def mla_project(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """x (B, S, d) -> (q_nope (B, S, H, nope), q_pe (B, S, H, rope),
+    c_kv (B, S, 1, r) normed, k_pe (B, S, 1, rope)): RoPE on ``q_pe`` and
+    ``k_pe``; ``c_kv`` and ``k_pe`` are what the cache holds."""
+    B, S, _ = x.shape
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ p["wq"].to(x.dtype)).view(B, S, H, dn + dr)
+    q_nope, q_pe = q.split([dn, dr], dim=-1)
+    c_kv, k_pe = (x @ p["w_kv_a"].to(x.dtype)).split([r, dr], dim=-1)
+    c_kv = kops.rmsnorm(c_kv, p["kv_norm"], MLA_NORM_EPS)
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta, interleave=True)
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta, interleave=True)
+    return q_nope, q_pe, c_kv[:, :, None, :], k_pe
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def mla_attention(cfg: ModelConfig, p: Params, q_nope, q_pe, c_kv, k_pe, *,
+                  causal: bool = True) -> torch.Tensor:
+    """The non-absorbed form over a whole sequence: each head's keys
+    ``[c_kv @ W_UK, k_pe]`` and values ``c_kv @ W_UV``, then attention at
+    scale 1/sqrt(nope + rope). Returns (B, S, H * v) before ``wo``."""
+    B, S, H, dn = q_nope.shape
+    dv = cfg.v_head_dim
+    with trace.span("mla.attn", rows=B * S):
+        kv = (c_kv[:, :, 0] @ p["w_kv_b"].to(c_kv.dtype)).view(B, S, H, dn + dv)
+        k_nope, v = kv.split([dn, dv], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(B, S, H, k_pe.shape[-1])], dim=-1)
+        o = kops.flash_attention(q, k, v, causal=causal)     # scale 1/sqrt(nope + rope)
+    return o.reshape(B, S, H * dv)
+
+
+def mla_decode_attention(cfg: ModelConfig, p: Params, q_nope, q_pe, c_cache, pe_cache,
+                         kv_len: torch.Tensor, known_len: Optional[int] = None
+                         ) -> torch.Tensor:
+    """The absorbed form for one token against the latent cache:
+    ``q_lat = q_nope @ W_UK`` (r a head), scores of ``[q_lat, q_pe]``
+    against each cached ``[c_kv, k_pe]``, then ``(P @ c_kv) @ W_UV``.
+    q_nope (B, 1, H, nope), q_pe (B, 1, H, rope); caches (B, T, 1, r) and
+    (B, T, 1, rope); kv_len (B,) int32. Returns (B, 1, H * v) before
+    ``wo``. ``known_len`` is the valid length where the host knows it (the
+    span's attribute; None in a step captured with its position on the
+    device)."""
+    B, _, H, dn = q_nope.shape
+    r, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    w = p["w_kv_b"].to(q_nope.dtype).view(r, H, dn + dv)
+    with trace.span("mla.decode", kv_len=known_len):
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w[..., :dn])
+        q = torch.cat([q_lat, q_pe[:, 0]], dim=-1)                   # (B, H, r + rope)
+        o_lat = kops.mla_decode(q, c_cache, pe_cache, kv_len, mla_scale(cfg))
+        o = torch.einsum("bhr,rhv->bhv", o_lat, w[..., dn:])
+    return o.reshape(B, 1, H * dv)
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg: ModelConfig, lead: Tuple[int, ...], generator, device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, lead: Tuple[int, ...], generator, device,
+             d_ff: Optional[int] = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.pdtype
     return {
         "w_gate": dense_init((*lead, d, f), dt, generator, device),

@@ -24,7 +24,10 @@ A MoE layer's ``ffn`` holds a ``router`` and expert banks
 and drop the router's aux loss on the serving path (the training forward
 adds it to the loss, as the reference does). The families:
 
-  DENSE, MOE  ``layers``: attention layers, stacked (L, ...)
+  DENSE, MOE  ``layers``: attention layers, stacked (L, ...); a MOE model
+              with ``n_dense_layers`` runs that many layers with a dense
+              MLP of ``dense_d_ff`` first, stacked apart under
+              ``dense_layers`` (DeepSeek-V3's ``first_k_dense_replace``)
   SSM         ``layers``: Mamba-2 mixers (``models/mamba.py``), no FFN
   HYBRID      ``blocks/sub{i}``: periods of ``attn_every`` sublayers, stacked
               (nP, ...); sublayer ``attn_every - 1`` is attention without
@@ -42,6 +45,11 @@ per ``cfg.remat_policy`` (``torch.utils.checkpoint``). It never runs under
 ``inference_mode``; prefill and decode always do (under a mesh, ``no_grad``:
 DTensor views need version counters). Layer streaming serves
 DENSE and MoE.
+
+With ``cfg.mla`` every attention layer is latent attention
+(``layers.mla_*``): its decode cache holds ``c_kv`` (B, T, 1, r) and
+``k_pe`` (B, T, 1, rope) in place of K and V, and a decode step runs the
+absorbed form against it.
 """
 from __future__ import annotations
 
@@ -71,12 +79,14 @@ def _check_family(cfg: ModelConfig) -> None:
 # init_params
 # ---------------------------------------------------------------------------
 
-def _init_attn_layer(cfg: ModelConfig, lead, generator, device, use_moe: bool) -> Params:
+def _init_attn_layer(cfg: ModelConfig, lead, generator, device, use_moe: bool,
+                     d_ff: Optional[int] = None) -> Params:
     return {"ln1": L.init_norm(cfg, lead, device),
-            "attn": L.init_attention(cfg, lead, generator, device),
+            "attn": (L.init_mla(cfg, lead, generator, device) if cfg.mla
+                     else L.init_attention(cfg, lead, generator, device)),
             "ln2": L.init_norm(cfg, lead, device),
             "ffn": (MoE.init_moe(cfg, lead, generator, device) if use_moe
-                    else L.init_mlp(cfg, lead, generator, device))}
+                    else L.init_mlp(cfg, lead, generator, device, d_ff))}
 
 
 def _init_mamba_layer(cfg: ModelConfig, lead, generator, device, with_ffn: bool,
@@ -112,7 +122,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
     fam = cfg.family
     if fam in (DENSE, MOE):
-        params["layers"] = _init_attn_layer(cfg, (cfg.n_layers,), generator, device,
+        if cfg.n_dense_layers:
+            params["dense_layers"] = _init_attn_layer(cfg, (cfg.n_dense_layers,), generator,
+                                                      device, False, cfg.dense_d_ff)
+        params["layers"] = _init_attn_layer(cfg, (cfg.n_moe_stack,), generator, device,
                                             cfg.n_experts > 0)
     elif fam == SSM:
         params["layers"] = _init_mamba_layer(cfg, (cfg.n_layers,), generator, device,
@@ -143,6 +156,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["dec_layers"] = dec
         params["enc_final_norm"] = L.init_norm(cfg, (), device)
     return params
+
+
+def trunk_layers(cfg: ModelConfig, params: Params) -> List[Params]:
+    """The DENSE and MOE families' layers in order, as views: the leading
+    dense layers, then ``layers``. Layer ``i`` of the list writes slot ``i``
+    of the stacked decode cache."""
+    out = [layer_params(params["dense_layers"], i) for i in range(cfg.n_dense_layers)]
+    return out + [layer_params(params["layers"], i) for i in range(cfg.n_moe_stack)]
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -180,7 +201,14 @@ def _res(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _attn_cache_zeros(cfg: ModelConfig, B: int, T: int, device, lead=()) -> Params:
-    """Zero KV cache, ``(*lead, B, T, Hkv, hd)`` per K and V."""
+    """Zero KV cache, ``(*lead, B, T, Hkv, hd)`` per K and V; with latent
+    attention ``c_kv`` ``(*lead, B, T, 1, r)`` and ``k_pe``
+    ``(*lead, B, T, 1, rope)``, shared by every head."""
+    if cfg.mla:
+        return {"c_kv": torch.zeros(*lead, B, T, 1, cfg.kv_lora_rank, dtype=cfg.cdtype,
+                                    device=device),
+                "k_pe": torch.zeros(*lead, B, T, 1, cfg.qk_rope_head_dim, dtype=cfg.cdtype,
+                                    device=device)}
     shape = (*lead, B, T, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
@@ -250,19 +278,19 @@ def _map_leaves(fn, tree, *rest):
 
 def _write_kv(cache_layer: Params, k: torch.Tensor, v: torch.Tensor, start: Pos) -> Params:
     """KV append, written IN PLACE into the cache (a view of the stacked
-    cache, or one layer's own cache on the streaming path). The JAX version
-    is out-of-place (dynamic_update_slice on an immutable array); the
-    prefix-KV cache therefore stores a copy of each prefill cache and hands
-    every hit a fresh clone (``serving/prefix_cache.py``). A ``start`` on
-    the device, a (1,) int64 tensor, takes one row (a decode step's token),
-    written by index so that the host never reads it."""
-    if torch.is_tensor(start):
-        cache_layer["k"].index_copy_(1, start, k.to(cache_layer["k"].dtype))
-        cache_layer["v"].index_copy_(1, start, v.to(cache_layer["v"].dtype))
-        return cache_layer
-    S = k.shape[1]
-    cache_layer["k"][:, start:start + S] = k.to(cache_layer["k"].dtype)
-    cache_layer["v"][:, start:start + S] = v.to(cache_layer["v"].dtype)
+    cache, or one layer's own cache on the streaming path): ``k`` and ``v``
+    into the layer's two cache leaves, in their order (K and V, or latent
+    attention's ``c_kv`` and ``k_pe``). The JAX version is out-of-place
+    (dynamic_update_slice on an immutable array); the prefix-KV cache
+    therefore stores a copy of each prefill cache and hands every hit a
+    fresh clone (``serving/prefix_cache.py``). A ``start`` on the device, a
+    (1,) int64 tensor, takes one row (a decode step's token), written by
+    index so that the host never reads it."""
+    for dst, new in zip(cache_layer.values(), (k, v)):
+        if torch.is_tensor(start):
+            dst.index_copy_(1, start, new.to(dst.dtype))
+        else:
+            dst[:, start:start + new.shape[1]] = new.to(dst.dtype)
     return cache_layer
 
 
@@ -280,8 +308,13 @@ def _ffn_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _self_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                causal: bool = True, rope: bool = True):
-    """``x + attn(ln1(x))`` over the whole sequence. Returns (x', k, v)."""
+    """``x + attn(ln1(x))`` over the whole sequence. Returns (x', k, v), or
+    with latent attention (x', c_kv, k_pe), what the cache holds."""
     h = L.apply_norm(cfg, p["ln1"], x)
+    if cfg.mla:
+        q_nope, q_pe, c_kv, k_pe = L.mla_project(cfg, p["attn"], h, positions)
+        o = L.mla_attention(cfg, p["attn"], q_nope, q_pe, c_kv, k_pe, causal=causal)
+        return x + o @ p["attn"]["wo"].to(o.dtype), c_kv, k_pe
     q, k, v = L.qkv_project(cfg, p["attn"], h, positions, rope=rope)
     o = L.attention_core(cfg, q, k, v, causal=causal)
     return x + L.attention_out(cfg, p["attn"], o), k, v
@@ -502,9 +535,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)[None, :]
     if fam in (DENSE, MOE):
-        for i in range(cfg.n_layers):
-            x, _ = prefill_attn_layer(cfg, layer_params(params["layers"], i),
-                                      layer_params(cache["attn"], i), x, positions)
+        for i, layer in enumerate(trunk_layers(cfg, params)):
+            x, _ = prefill_attn_layer(cfg, layer, layer_params(cache["attn"], i), x, positions)
     elif fam == SSM:
         for i in range(cfg.n_layers):
             x, _ = prefill_mamba_layer(cfg, layer_params(params["layers"], i),
@@ -553,7 +585,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 
 def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, pos: Pos,
                       rope: bool = True) -> torch.Tensor:
-    """``x + attn(ln1(x))`` for one token; its K/V appended to ``cl`` in place."""
+    """``x + attn(ln1(x))`` for one token; its K/V (latent attention: its
+    ``c_kv`` and ``k_pe``) appended to ``cl`` in place."""
     B = x.shape[0]
     h = L.apply_norm(cfg, p["ln1"], x)
     if torch.is_tensor(pos):       # on the device: the same int32 values, no host read
@@ -562,6 +595,12 @@ def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cl: Params, 
     else:
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    if cfg.mla:
+        q_nope, q_pe, c_kv, k_pe = L.mla_project(cfg, p["attn"], h, positions)
+        cl = _write_kv(cl, c_kv, k_pe, pos)
+        o = L.mla_decode_attention(cfg, p["attn"], q_nope, q_pe, cl["c_kv"], cl["k_pe"],
+                                   kv_len, None if torch.is_tensor(pos) else pos + 1)
+        return x + o @ p["attn"]["wo"].to(o.dtype)
     q, k, v = L.qkv_project(cfg, p["attn"], h, positions, rope=rope)
     cl = _write_kv(cl, k, v, pos)
     o = L.decode_attention_core(cfg, q, cl["k"], cl["v"], kv_len)
@@ -600,9 +639,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     x = part.shard_btd(part.embed_lookup(params["embed"], token)[:, None, :]
                        .to(cfg.cdtype))                                    # (B,1,D)
     if fam in (DENSE, MOE):
-        for i in range(cfg.n_layers):
-            x, _ = _attn_decode(cfg, layer_params(params["layers"], i), x,
-                                layer_params(cache["attn"], i), pos)
+        for i, layer in enumerate(trunk_layers(cfg, params)):
+            x, _ = _attn_decode(cfg, layer, x, layer_params(cache["attn"], i), pos)
     elif fam == SSM:
         for i in range(cfg.n_layers):
             x, _ = _mamba_decode(cfg, layer_params(params["layers"], i), x,
@@ -722,7 +760,10 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
                     else _apply_attn_layer(cfg, p, x, positions))
             return x, aux + a
 
-        x, aux = _scan(cfg, body, _unstack(params["layers"], cfg.n_layers), x, aux)
+        layers = _unstack(params["layers"], cfg.n_moe_stack)
+        if cfg.n_dense_layers:
+            layers = _unstack(params["dense_layers"], cfg.n_dense_layers) + layers
+        x, aux = _scan(cfg, body, layers, x, aux)
     elif fam == HYBRID:
         period = cfg.attn_every
         # nested remat, as the reference: the period body keeps only its

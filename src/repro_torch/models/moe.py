@@ -23,6 +23,13 @@ ways DTensor has no rule for, so they run whole on every rank: the tokens
 and expert weights gathered, the result replicated (the reference leaves
 their partitioning to GSPMD).
 
+Routing is softmax over the router's logits by default. With
+``cfg.router_scoring == "sigmoid"`` (DeepSeek-V3's ``noaux_tc`` with one
+group, the port's own: the JAX package has no such router) the scores are
+the logits' sigmoids, in float32; the top k are chosen on the scores plus a
+float32 ``router_bias`` (E,) and weighted by the unbiased scores,
+normalised over the k, times ``cfg.routed_scaling_factor``.
+
 Two choices keep every path exact and repeatable, on the CPU and on CUDA:
 
 - Top-k is a stable descending sort, so tied router probabilities go to
@@ -64,6 +71,8 @@ def init_moe(cfg: ModelConfig, lead: Tuple[int, ...], generator, device) -> Para
         "w_down": dense_init((*lead, e, f, d), dt, generator, device,
                              scale=1.0 / math.sqrt(f * 2 * cfg.n_layers)),
     }
+    if cfg.router_scoring == "sigmoid":
+        p["router_bias"] = torch.zeros(*lead, e, dtype=torch.float32, device=device)
     if cfg.n_shared_experts:
         sf = f * cfg.n_shared_experts
         p["shared_gate"] = dense_init((*lead, d, sf), dt, generator, device)
@@ -76,14 +85,26 @@ def router_topk(cfg: ModelConfig, p: Params, x2d: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (weights (T,k) in x's dtype, indices (T,k), aux_loss scalar).
 
-    Logits are a product in x's dtype, then cast to float32, as in the
-    reference. Ties go to the lower expert index (stable sort)."""
+    Softmax: logits are a product in x's dtype, then cast to float32, as in
+    the reference. Sigmoid: a float32 product, as DeepSeek-V3's gate; the
+    aux loss is the same formula over the scores normalised per token. Ties
+    go to the lower expert index (stable sort)."""
     E, K = cfg.n_experts, cfg.top_k
-    logits = (x2d @ p["router"].to(x2d.dtype)).float()               # (T,E)
-    probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topw, topi = topw[:, :K], topi[:, :K]
-    topw = topw / topw.sum(-1, keepdim=True)
+    with trace.span("moe.route", scoring=cfg.router_scoring):
+        if cfg.router_scoring == "sigmoid":
+            scores = torch.sigmoid(x2d.float() @ p["router"].float())   # (T,E)
+            _, topi = torch.sort(scores + p["router_bias"].float(), dim=-1, descending=True,
+                                 stable=True)
+            topi = topi[:, :K]
+            topw = scores.gather(-1, topi)
+            topw = topw / (topw.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling_factor
+            probs = scores / scores.sum(-1, keepdim=True)
+        else:
+            logits = (x2d @ p["router"].to(x2d.dtype)).float()           # (T,E)
+            probs = torch.softmax(logits, dim=-1)
+            topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+            topw, topi = topw[:, :K], topi[:, :K]
+            topw = topw / topw.sum(-1, keepdim=True)
     # load-balancing aux: E * sum_e (frac_tokens_e * mean_prob_e)
     onehot = F.one_hot(topi, E).float()                              # (T,k,E)
     frac = onehot.sum(1).mean(0)
@@ -291,6 +312,9 @@ def moe_ep(cfg: ModelConfig, p: Params, x):
     not counted again, in value or in gradient), and the mesh adds them."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
+    if cfg.router_scoring != "softmax":
+        raise NotImplementedError("expert parallelism routes by softmax only; "
+                                  f"{cfg.name} scores by {cfg.router_scoring}")
     mesh = x.device_mesh
     names = list(mesh.mesh_dim_names)
     sizes = dict(zip(names, mesh.shape))

@@ -23,7 +23,6 @@ Latency accounting per request mirrors paper Fig. 1/9:
 from __future__ import annotations
 
 import collections
-import dataclasses
 import functools
 import hashlib
 import json
@@ -52,7 +51,7 @@ GRAPH_POOL = 4      # captured decode steps an engine keeps; the least recently 
 
 
 def arch_signature(cfg: ModelConfig) -> str:
-    payload = json.dumps(dataclasses.asdict(cfg), sort_keys=True, default=str)
+    payload = json.dumps(cfg.to_dict(), sort_keys=True, default=str)
     return hashlib.sha1(payload.encode()).hexdigest()[:16]
 
 
@@ -62,7 +61,7 @@ def publish_model(disk: DiskStore, cfg: ModelConfig, params,
     """Serialize a params tree into the store (deploy path / train export)."""
     key = ModelKey(framework, name or cfg.name, version)
     disk.put(key, params_to_flat(params),
-             meta={"config": dataclasses.asdict(cfg)})
+             meta={"config": cfg.to_dict()})
     return key
 
 
@@ -77,12 +76,28 @@ def graph_decode_ok(cfg: ModelConfig, params, device: torch.device) -> bool:
             and cfg.moe_impl != "ragged" and not is_distributed(params["embed"]))
 
 
+def check_streamable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a DENSE or MOE model that layer
+    streaming cannot serve: latent attention (its layer plan and per-layer
+    caches are K/V's) or leading dense layers (stacked apart from
+    ``layers``, so the plan puts them in the stem window). Such a model is
+    served with streaming off."""
+    if cfg.mla or cfg.n_dense_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: layer streaming does not serve latent attention or leading dense "
+            "layers; serve it with streaming=False")
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
             yield from _leaves(v)
         else:
             yield v
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def param_layout(params) -> tuple:
@@ -94,9 +109,10 @@ def param_layout(params) -> tuple:
 
 class DecodeGraph:
     """One decode step captured in a CUDA graph, and the static tensors it
-    reads and writes: the token (B,), the position (1,) on the device, a KV
-    cache of (n_layers, B, max_len, Hkv, hd) and the output tokens (B,
-    max_len), whose column ``p`` holds the token chosen by the step at
+    reads and writes: the token (B,), the position (1,) on the device, the
+    decode cache of ``M.init_cache`` (K/V of (n_layers, B, max_len, Hkv,
+    hd), or latent attention's ``c_kv`` and ``k_pe``) and the output tokens
+    (B, max_len), whose column ``p`` holds the token chosen by the step at
     position ``p``. The step advances its own token and position, so that a
     replay takes no host work. It holds no reference to the params."""
 
@@ -107,8 +123,7 @@ class DecodeGraph:
             self.pos = torch.zeros(1, dtype=torch.long, device=device)
             self.out = torch.zeros(B, max_len, dtype=torch.long, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.nbytes = sum(t.numel() * t.element_size()
-                          for t in (*_leaves(self.cache), self.token, self.pos, self.out))
+        self.nbytes = _nbytes((*_leaves(self.cache), self.token, self.pos, self.out))
         self.busy = True              # lent to the request that made it
 
     @torch.inference_mode()
@@ -169,6 +184,7 @@ class RequestStats:
     ttft_s: float = 0.0          # submit -> first token materialized
     streamed: bool = False       # served via the layer-streaming path (§9)
     graph_steps: int = 0         # decode steps replayed from a CUDA graph
+    cache_bytes: int = 0         # device bytes of the decode cache the request held
 
 
 class InferenceEngine:
@@ -346,7 +362,9 @@ class InferenceEngine:
 
         With ``streaming`` on, cold DENSE/MoE loads are served layer by layer
         against a partial open (same tokens, earlier first token); anything
-        else falls through to the batch path below."""
+        else falls through to the batch path below, except a model with
+        latent attention or leading dense layers, which streaming refuses
+        (:func:`check_streamable`)."""
         with trace.request(), trace.span("engine.request"):
             if self.streaming:
                 r = self._generate_streaming(name, tokens, max_new_tokens, version)
@@ -391,6 +409,7 @@ class InferenceEngine:
                     self.prefix_kv.insert(pkey, logits, cache,
                                           time.perf_counter() - t0)
             tok = logits.argmax(-1)
+            cache_bytes = _nbytes(_leaves(cache))
             synchronize(self.device)
             ttft_s = time.perf_counter() - t_start
             if g is not None:
@@ -425,7 +444,8 @@ class InferenceEngine:
             model=name, cold=not sm.loaded.via_trims or tm.tier_hit != "device",
             tier_hit=tm.tier_hit, model_load_s=load_s,
             compile_s=extra_c, compute_s=compute_s,
-            total_s=time.perf_counter() - t_start, ttft_s=ttft_s, graph_steps=graph_steps)
+            total_s=time.perf_counter() - t_start, ttft_s=ttft_s, graph_steps=graph_steps,
+            cache_bytes=cache_bytes)
         with self._lock:
             self.stats.append(st)
         return result, st
@@ -510,6 +530,8 @@ class InferenceEngine:
             return None
         if cfg is not None and cfg.family not in (DENSE, MOE):
             return None
+        if cfg is not None:
+            check_streamable(cfg)
         if self.mrm.resident(key, Tier.DEVICE) or \
                 self.mrm.resident(key, Tier.HOST):
             return None            # warm model: batch path is strictly better
@@ -524,6 +546,14 @@ class InferenceEngine:
             if raw is not None:
                 cfg = ModelConfig(**dict(raw))
                 self._cfg_cache[(name, version)] = cfg
+        if cfg is not None and cfg.family in (DENSE, MOE):
+            try:
+                check_streamable(cfg)
+            except NotImplementedError:
+                h = fut.result()
+                if h is not None:
+                    self.mrm.close(h)
+                raise
         if fut.plan is None or cfg is None or cfg.family not in (DENSE, MOE):
             # warm hit / non-streaming primary / unknown config: batch path
             # (the close below just drops our reference; bytes stay cached)
@@ -617,6 +647,7 @@ class InferenceEngine:
                 out.append(tok)
             result = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
             compute_s = max(0.0, time.perf_counter() - t_c0 - extra_c)
+            cache_bytes = _nbytes(t for c in caches for t in _leaves(c))
         finally:
             h = fut.result()            # loader done (verifies all windows)
             if h is not None:
@@ -627,7 +658,8 @@ class InferenceEngine:
             model=name, cold=True, tier_hit=tm.tier_hit,
             model_load_s=blocked_s,   # critical-path wait, not wall staging
             compile_s=extra_c, compute_s=compute_s,
-            total_s=time.perf_counter() - t_start, ttft_s=ttft_s, streamed=True)
+            total_s=time.perf_counter() - t_start, ttft_s=ttft_s, streamed=True,
+            cache_bytes=cache_bytes)
         with self._lock:
             self.stats.append(st)
         return result, st
